@@ -1,0 +1,43 @@
+"""CLI: run SLAM from a YAML config on the GPU (or, on request, the CPU).
+
+    python -m mm3dgs_slam_torch --config configs/synthetic_tum.yml [--device cpu]
+
+Exits non-zero when the run failed (the map and results are saved anyway).
+"""
+from __future__ import annotations
+
+import argparse
+import random
+import sys
+
+import numpy as np
+
+
+def run(cfg: dict, device: str = "cuda"):
+    """Construct and run the SLAM; returns it (its `failed` is None on
+    success)."""
+    from .slam.slam import SLAM
+
+    slam = SLAM(cfg, device=device)
+    slam.run()
+    return slam
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="MM3DGS-SLAM, PyTorch/CUDA port")
+    parser.add_argument("--config", type=str, required=True, help="path to a YAML config")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu; the config's `device` key is ignored")
+    args = parser.parse_args(argv)
+    random.seed(0)
+    np.random.seed(0)
+    print("Running with config:", args.config)
+
+    from .config import load_config
+
+    slam = run(load_config(args.config), args.device)
+    return 1 if slam.failed is not None else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

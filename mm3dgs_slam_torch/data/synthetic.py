@@ -1,0 +1,146 @@
+"""Procedural synthetic RGB-D dataset rendered from a random Gaussian scene
+(JAX counterpart: data/synthetic.py).
+
+Frames are rendered by the port's exact oracle (ops/oracle.py) from a known
+camera trajectory, so SLAM on it should recover a near-zero ATE. The JAX
+package draws its scene from `jax.random`, which torch cannot reproduce;
+this generator draws the same distributions from
+`numpy.random.default_rng(seed)`, so its scenes (and golden numbers) differ
+from the JAX package's for the same seed. A caller can inject a scene
+instead (`scene=` numpy arrays), which is how the tests feed both packages
+the same one.
+
+Config block (all optional):
+  synthetic: {n_gaussians: 400, n_frames: 12, seed: 0, orbit_radius: 0.15,
+              textured: false, occluders: 0, noise_std: 0.0}
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.camera import Camera
+from ..ops.oracle import composite_oracle
+from ..ops.pose import w2c_to_pose
+from ..ops.render import ActivatedGaussians, RenderSettings, project_for_pose
+from ..ops.sh import rgb_to_sh
+
+SCENE_FIELDS = ("xyz", "scales", "rotations", "opacity", "rgb")
+
+
+def _texture_rgb(xyz):
+    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    r = 0.5 + 0.25 * np.sin(21.0 * x + 13.0 * y) + 0.25 * np.sin(7.0 * z)
+    g = 0.5 + 0.25 * np.sin(17.0 * y + 5.0 * z) + 0.25 * np.sin(29.0 * x)
+    b = 0.5 + 0.25 * np.sin(11.0 * x * y) + 0.25 * np.sin(19.0 * z + 3.0 * y)
+    return np.clip(np.stack([r, g, b], axis=-1), 0.02, 0.98)
+
+
+def make_scene(seed: int, n: int, cam: Camera, textured: bool = False,
+               occluders: int = 0) -> dict:
+    """The JAX `_make_scene` distributions (data/synthetic.py:52-98) drawn
+    from a numpy stream: dict of float32 arrays xyz, scales, rotations,
+    opacity, rgb."""
+    rng = np.random.default_rng(seed)
+    n_fg = min(n // 5, occluders * max(n // 20, 1)) if occluders else 0
+    n_bg = n - n_fg
+    z = rng.uniform(1.5, 5.0, n)
+    px = rng.uniform(-10.0, cam.width + 10.0, n)
+    py = rng.uniform(-10.0, cam.height + 10.0, n)
+    if n_fg:
+        stripe = rng.integers(0, occluders, n_fg)
+        centers = np.linspace(0.2, 0.8, occluders)[stripe] * cam.width
+        px[n_bg:] = centers + rng.normal(size=n_fg) * 0.02 * cam.width
+        py[n_bg:] = rng.uniform(-5.0, cam.height + 5.0, n_fg)
+        z[n_bg:] = 1.0 + 0.1 * rng.normal(size=n_fg)
+    xyz = np.stack([(px - cam.cx) / cam.fx * z, (py - cam.cy) / cam.fy * z, z], axis=-1)
+    scales = np.exp(rng.uniform(-3.2, -1.8, (n, 3)))
+    if n_fg:
+        scales[n_bg:] *= 0.6
+    q = rng.normal(size=(n, 4))
+    rot = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    opacity = np.clip(1.0 / (1.0 + np.exp(-rng.normal(size=n))) + 0.7, 0.7, 0.98)
+    if n_fg:
+        opacity[n_bg:] = 0.97
+    rgb = _texture_rgb(xyz) if textured else rng.uniform(0.0, 1.0, (n, 3))
+    out = dict(xyz=xyz, scales=scales, rotations=rot, opacity=opacity, rgb=rgb)
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+class SyntheticDataset:
+    has_imu = False
+
+    def __init__(self, config_dict, basedir=None, sequence=None, stride=1,
+                 start=0, end=-1, desired_height=64, desired_width=80,
+                 relative_pose=True, device=None, scene: dict | None = None, **kwargs):
+        syn = config_dict.get("synthetic", {}) or {}
+        n_gauss = int(syn.get("n_gaussians", 400))
+        n_frames = int(syn.get("n_frames", 12))
+        seed = int(syn.get("seed", 0))
+        orbit = float(syn.get("orbit_radius", 0.15))
+        noise_std = float(syn.get("noise_std", 0.0))
+
+        cam_cfg = config_dict["cam"]
+        h, w = desired_height, desired_width
+        ratio_h, ratio_w = h / cam_cfg["image_height"], w / cam_cfg["image_width"]
+        cam = Camera(height=h, width=w,
+                     fx=cam_cfg["fx"] * ratio_w, fy=cam_cfg["fy"] * ratio_h,
+                     cx=cam_cfg["cx"] * ratio_w, cy=cam_cfg["cy"] * ratio_h)
+        self.cam = cam
+        if scene is None:
+            scene = make_scene(seed, n_gauss, cam, textured=bool(syn.get("textured", False)),
+                               occluders=int(syn.get("occluders", 0)))
+        t = {k: torch.as_tensor(np.asarray(scene[k], np.float32), device=device)
+             for k in SCENE_FIELDS}
+        self.scene = ActivatedGaussians(
+            xyz=t["xyz"], scales=t["scales"], rotations=t["rotations"],
+            opacity=t["opacity"], shs=rgb_to_sh(t["rgb"])[:, None, :],
+            alive=torch.ones(t["xyz"].shape[0], dtype=torch.bool, device=device))
+        rs = RenderSettings(cam=cam)
+
+        # smooth trajectory: gentle arc + forward drift (w2c convention)
+        poses_w2c = []
+        for i in range(n_frames):
+            s = i / max(n_frames - 1, 1)
+            ang = 0.5 * np.pi * s
+            yaw = 0.05 * np.sin(ang)
+            cy_, sy_ = np.cos(yaw), np.sin(yaw)
+            w2c = np.eye(4, dtype=np.float32)
+            w2c[:3, :3] = np.array([[cy_, 0, sy_], [0, 1, 0], [-sy_, 0, cy_]])
+            w2c[:3, 3] = [orbit * np.sin(ang), 0.5 * orbit * (1 - np.cos(ang)), 0.1 * s]
+            poses_w2c.append(w2c)
+
+        self.frames, self.poses = [], []
+        noise_rng = np.random.default_rng(seed + 1)
+        bg = torch.zeros(6, device=device)
+        for w2c in poses_w2c:
+            pose7 = w2c_to_pose(torch.as_tensor(w2c, device=device))
+            img6 = composite_oracle(project_for_pose(self.scene, pose7, rs), cam, bg)
+            rgb = torch.clamp(img6[:3], 0, 1).cpu().numpy()
+            if noise_std > 0.0:
+                rgb = np.clip(rgb + noise_rng.normal(0.0, noise_std, rgb.shape).astype(np.float32),
+                              0.0, 1.0)
+            sil = img6[4].cpu().numpy()
+            depth = img6[3].cpu().numpy()
+            d = np.where(sil > 0.5, depth / np.maximum(sil, 1e-6), 0.0)
+            self.frames.append((rgb, d.astype(np.float32)))
+            self.poses.append(np.linalg.inv(w2c))  # c2w
+
+        sl = slice(start, None if end == -1 else end, stride or 1)
+        self.frames, self.poses = self.frames[sl], self.poses[sl]
+        if relative_pose:
+            first = self.poses[0]
+            self.poses = [np.linalg.inv(first) @ p for p in self.poses]
+        self.num_imgs = len(self.frames)
+
+    def __len__(self):
+        return self.num_imgs
+
+    def __getitem__(self, index):
+        rgb, depth = self.frames[index]
+        K = np.eye(4, dtype=np.float32)
+        K[0, 0], K[1, 1] = self.cam.fx, self.cam.fy
+        K[0, 2], K[1, 2] = self.cam.cx, self.cam.cy
+        return ((rgb.transpose(1, 2, 0) * 255.0).astype(np.float32),
+                depth[..., None].astype(np.float32), K,
+                self.poses[index].astype(np.float32), None)
