@@ -10,7 +10,9 @@ Phases (each passes or the script exits non-zero):
      from the first synthetic_tum frame (one Gaussian per pixel) seen from
      the second frame's pose: kernel 1 at nc 3/5/6 on black and white
      backgrounds, kernel 2's dpacked, kernel 3's per-tile partials, dq and dT;
-     times from CUDA events, bounds from the walk's counts in this data;
+     kernels 1 and 2's count of (tile, pair, warp box)s their cull keeps
+     against the plain count; times from CUDA events, bounds from the walk's
+     counts in this data;
   4. the main path: the CLI's code path (`python -m mm3dgs_slam_torch
      --config configs/synthetic_tum.yml`) at full width with the frame count
      cut to a few, launch counts reset just before and read just after;
@@ -37,9 +39,12 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA data sheet (SXM)
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
 # The least f32 arithmetic each function needs (comparisons not counted, an
 # exp counted as one), from the walk's counts in this run's data (plain
-# composite_fwd_plain(count_work=True)): every tested pixel-pair forms dx, dy
-# and the conic quadratic (11); a used one adds exp, the opacity product and
-# the clamp (3), T (2) and w (1), then per function:
+# composite_fwd_plain(count_work=True)). Any exact walk must evaluate the
+# pixel-pairs a pixel uses and the one it stops on: each forms dx, dy and the
+# conic quadratic (11). The other tested pixel-pairs are skipped, and a cull
+# (the kernels' per-warp one) need not evaluate them, so they are not
+# charged. A used pixel-pair adds exp, the opacity product and the clamp (3),
+# T (2) and w (1), then per function:
 OPS_TEST = 11
 # forward: acc += w f over nc channels
 OPS_FWD_USE = lambda nc: 6 + 2 * nc                           # noqa: E731
@@ -68,6 +73,7 @@ def fail(msg: str):
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean ms per call of fn over reps calls, CUDA events, after warm calls."""
     import torch
 
     for _ in range(warm):
@@ -95,28 +101,37 @@ def max_violation(got, want, atol, rtol):
     return float(err.max()), bool((err <= atol + rtol * torch.abs(want)).all())
 
 
-def check_kernels(cfg, device):
-    """Phase 3: each kernel against its plain version; returns the rows of
-    the kernels line (launches filled in later)."""
+def check_work(name, counter, work):
+    """A kernel's work counter [kept, walked] against the plain count."""
+    kept, walked = counter.tolist()
+    ok = kept == work["warp_pairs"] and walked <= kept
+    print(f"[check] {name} work: {kept} (tile, pair, warp box)s kept by the cull, plain "
+          f"warp_pairs {work['warp_pairs']} ({'ok' if ok else 'FAIL'}); {walked} (warp, pair)s "
+          f"walked", flush=True)
+    if not ok:
+        fail(f"{name}: {kept} boxes kept (plain warp_pairs {work['warp_pairs']}), "
+             f"{walked} walked")
+    return kept, walked
+
+
+def check_scene(cfg, device):
+    """Frame 0 of the config's synthetic sequence seeded one Gaussian per
+    pixel, projected and binned from frame 1's pose: (activated map, frame
+    1's pose, render settings, packed rows [N, 16], bins)."""
     import torch
 
     from mm3dgs_slam_torch.data.synthetic import SyntheticDataset
     from mm3dgs_slam_torch.models import gaussians as G
-    from mm3dgs_slam_torch.ops import composite as plain
-    from mm3dgs_slam_torch.ops import kernels
     from mm3dgs_slam_torch.ops.binning import build_bins
     from mm3dgs_slam_torch.ops.camera import Camera
     from mm3dgs_slam_torch.ops.pose import w2c_to_pose
-    from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
-    from mm3dgs_slam_torch.ops.render import (RenderSettings, background, means_cam_soa,
-                                              pose_grads_from_partials, project_for_pose)
+    from mm3dgs_slam_torch.ops.render import RenderSettings, project_for_pose
     from mm3dgs_slam_torch.slam.map_ops import new_gaussian_candidates
 
     cfg = dict(cfg, synthetic=dict(cfg["synthetic"], n_frames=2))
     ds = SyntheticDataset(cfg, desired_height=cfg["desired_height"],
                           desired_width=cfg["desired_width"], device=device)
-    cam = ds.cam
-    rs = RenderSettings(cam=Camera(*cam))
+    rs = RenderSettings(cam=Camera(*ds.cam))
     color, depth, _, c2w0, _ = ds[0]
     c2w1 = ds[1][3]
     gt_color = torch.as_tensor(color.transpose(2, 0, 1) / 255.0, device=device)
@@ -125,24 +140,43 @@ def check_kernels(cfg, device):
     pose1 = w2c_to_pose(torch.as_tensor(np.linalg.inv(c2w1), device=device))
     empty = G.empty_map(0, device)
     stats = new_gaussian_candidates(empty.activated(), pose0, gt_color, gt_depth, rs, True)
-    m, _, n_added = G.append_gaussians(empty, G.init_adam(empty), stats.candidates)
+    m, _, _ = G.append_gaussians(empty, G.init_adam(empty), stats.candidates)
     g = m.activated()
     with torch.no_grad():
         proj = project_for_pose(g, pose1, rs)
         bins = build_bins(proj, rs.cam)
-    packed = proj.packed.contiguous()
+    return g, pose1, rs, proj.packed.contiguous(), bins
+
+
+def check_kernels(cfg, device):
+    """Phase 3: each kernel against its plain version; returns the rows of
+    the kernels line (launches filled in later)."""
+    import torch
+
+    from mm3dgs_slam_torch.ops import composite as plain
+    from mm3dgs_slam_torch.ops import kernels
+    from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
+    from mm3dgs_slam_torch.ops.render import (background, means_cam_soa,
+                                              pose_grads_from_partials)
+
+    g, pose1, rs, packed, bins = check_scene(cfg, device)
     n, n_pairs, n_tiles = packed.shape[0], bins.pair_gauss.shape[0], rs.cam.n_tiles
+    # the bounds' bytes: each function reads the 6 + nc fields it uses (kernel
+    # 3 also the 12 pose columns) of the rows of the Gaussians in some pair
+    n_seen = int(torch.unique(bins.pair_gauss).numel())
     print(f"[check] scene: {n} gaussians (frame 0 seeded, one per pixel) at "
-          f"{cam.width}x{cam.height}, {n_tiles} tiles, {n_pairs} pairs, "
-          f"max {int(bins.tile_count.max())} per tile", flush=True)
+          f"{rs.cam.width}x{rs.cam.height}, {n_tiles} tiles, {n_pairs} pairs of "
+          f"{n_seen} gaussians, max {int(bins.tile_count.max())} per tile", flush=True)
     args = (bins.pair_gauss, bins.tile_start, bins.tile_count, rs.cam)
     gen = torch.Generator(device=device).manual_seed(0)
+    new_work = lambda: torch.zeros(2, dtype=torch.int64, device=device)  # noqa: E731
     rows = []
 
     # kernel 1 at nc 3, 5, 6 on black and white backgrounds
     worst, ok_all, t_k, t_p = 0.0, True, {}, {}
     for nc in (3, 5, 6):
-        acc_k, tfin_k = kernels.composite_fwd(packed, *args, nc)
+        counter = new_work()
+        acc_k, tfin_k = kernels.composite_fwd(packed, *args, nc, work=counter)
         acc_p, tfin_p, work = plain.composite_fwd_plain(packed, *args, nc, count_work=True)
         for white in (False, True):
             bg = background(rs._replace(white_background=white), device)[:nc][None, :, None]
@@ -150,17 +184,23 @@ def check_kernels(cfg, device):
             worst, ok_all = max(worst, err), ok_all and ok
             print(f"[check] kernel 1 nc={nc} {'white' if white else 'black'}: "
                   f"max abs err {err:.3e} ({'ok' if ok else 'FAIL'})", flush=True)
+        kept, walked = check_work(f"kernel 1 nc={nc}", counter, work)
         t_k[nc] = cuda_ms(lambda: kernels.composite_fwd(packed, *args, nc), 20)
         t_p[nc] = cuda_ms(lambda: plain.composite_fwd_plain(packed, *args, nc), 1, warm=0)
-    tested, used, pairs_used = work["tested"], work["used"], work["pairs_used"]
+    used, stops, pairs_used = work["used"], work["stops"], work["pairs_used"]
+    evaluated = used + stops
+    print(f"[check] walk: {work['tested']} pixel-pairs tested by the reference walk, {used} "
+          f"used, {stops} stops; {work['pairs_walked']} (tile, pair)s walked, {pairs_used} "
+          f"used; (warp, pair)s: {8 * work['pairs_walked']} without a cull, {kept} kept by "
+          f"the cull (warp_pairs), {walked} walked, {work['warp_pairs_min']} at least "
+          f"(a pixel of the box uses or stops on the pair)", flush=True)
     n_pix = n_tiles * 256
     nc = 5  # the tracking width, the main path's most frequent launch
-    fwd_bytes = 4 * (n * packed.shape[1] + n_pairs + 2 * n_tiles + n_pix * (nc + 1))
-    b, by = bound_ms(fwd_bytes, tested * OPS_TEST + used * OPS_FWD_USE(nc))
-    print(f"[check] kernel 1 times at nc=3/5/6: kernel {t_k[3]:.3f}/{t_k[5]:.3f}/{t_k[6]:.3f} ms, "
-          f"plain {t_p[3]:.1f}/{t_p[5]:.1f}/{t_p[6]:.1f} ms; {tested} pixel-pairs tested, "
-          f"{used} used, {pairs_used} (tile, pair)s used; bound at nc=5 {b:.4f} ms ({by})",
-          flush=True)
+    fwd_bytes = 4 * (n_seen * (6 + nc) + n_pairs + 2 * n_tiles + n_pix * (nc + 1))
+    b, by = bound_ms(fwd_bytes, evaluated * OPS_TEST + used * OPS_FWD_USE(nc))
+    print(f"[check] kernel 1 times at nc=3/5/6: kernel {t_k[3]:.4f}/{t_k[5]:.4f}/{t_k[6]:.4f} "
+          f"ms, plain {t_p[3]:.1f}/{t_p[5]:.1f}/{t_p[6]:.1f} ms; bound at nc=5 {b:.4f} ms "
+          f"({by})", flush=True)
     if not ok_all:
         fail("kernel 1 disagrees with its plain version")
     rows.append(dict(name="composite_fwd", route="cuda",
@@ -175,19 +215,22 @@ def check_kernels(cfg, device):
     dacc = torch.randn(acc.shape, generator=gen, device=device)
     dtfin = torch.randn(tfin.shape, generator=gen, device=device)
     gargs = (packed, *args[:3], acc, tfin, dacc, dtfin, rs.cam, nc)
-    d_k = kernels.composite_bwd(*gargs)
+    counter = new_work()
+    d_k = kernels.composite_bwd(*gargs, work=counter)
     d_p = plain.composite_bwd_plain(*gargs)
     scale = float(d_p.abs().max())
     err, ok = max_violation(d_k, d_p, **GRAD_TOL)
+    check_work(f"kernel 2 nc={nc}", counter, work)
     tk = cuda_ms(lambda: kernels.composite_bwd(*gargs), 10)
     tp = cuda_ms(lambda: plain.composite_bwd_plain(*gargs), 1, warm=0)
-    bwd_bytes = 4 * (n * packed.shape[1] + n_pairs + 2 * n_tiles
-                     + n_pix * (2 * nc + 2) + n * 16)
-    b, by = bound_ms(bwd_bytes, n_pix * OPS_PIX_BWD(nc) + tested * OPS_TEST
+    # out: the 6 + nc gradient fields of every row (the rest of dpacked is zero)
+    bwd_bytes = 4 * (n_seen * (6 + nc) + n_pairs + 2 * n_tiles
+                     + n_pix * (2 * nc + 2) + n * (6 + nc))
+    b, by = bound_ms(bwd_bytes, n_pix * OPS_PIX_BWD(nc) + evaluated * OPS_TEST
                      + used * OPS_BWD_USE(nc) + pairs_used * (6 + nc))
     print(f"[check] kernel 2 nc={nc}: dpacked max abs err {err:.3e} (max |dpacked| "
-          f"{scale:.3e}) ({'ok' if ok else 'FAIL'}); kernel {tk:.3f} ms, plain {tp:.1f} ms, "
-          f"bound {b:.4f} ms ({by})", flush=True)
+          f"{scale:.3e}) ({'ok' if ok else 'FAIL'}); kernel {tk:.4f} ms, "
+          f"plain {tp:.1f} ms, bound {b:.4f} ms ({by})", flush=True)
     if not ok:
         fail("kernel 2 disagrees with its plain version")
     rows.append(dict(name="composite_bwd", route="cuda",
@@ -220,15 +263,16 @@ def check_kernels(cfg, device):
     err, ok = max_violation(gk, gp, **POSE_TOL)
     tk = cuda_ms(lambda: kernels.composite_pose_bwd(*pargs), 10)
     tp = cuda_ms(lambda: plain.composite_pose_bwd_plain(*pargs), 1, warm=0)
-    pose_bytes = 4 * (n * 32 + n_pairs + 2 * n_tiles + n_pix * (2 * nc + 2) + n_tiles * 12)
-    b, by = bound_ms(pose_bytes, n_pix * OPS_PIX_BWD(nc) + tested * OPS_TEST
+    pose_bytes = 4 * (n_seen * (6 + nc + 12) + n_pairs + 2 * n_tiles
+                      + n_pix * (2 * nc + 2) + n_tiles * 12)
+    b, by = bound_ms(pose_bytes, n_pix * OPS_PIX_BWD(nc) + evaluated * OPS_TEST
                      + used * OPS_POSE_USE(nc) + pairs_used * OPS_POSE_PAIR(nc))
     print(f"[check] kernel 3 nc={nc}: per-tile partials [{n_tiles}, 12] max abs err "
           f"{err_t:.3e}, at most {rel_t:.3e} of sum |term| (max |partial| "
           f"{float(psum_p.abs().max()):.3e}, sum |term| up to {cancel:.3e}x |partial|) "
           f"({'ok' if ok_t else 'FAIL'}); dq {gk[:4].tolist()} vs plain {gp[:4].tolist()}, "
           f"dT {gk[4:].tolist()} vs plain {gp[4:].tolist()}; max abs err {err:.3e} "
-          f"({'ok' if ok else 'FAIL'}); kernel {tk:.3f} ms, plain {tp:.1f} ms, bound "
+          f"({'ok' if ok else 'FAIL'}); kernel {tk:.4f} ms, plain {tp:.1f} ms, bound "
           f"{b:.4f} ms ({by})", flush=True)
     if not (ok_t and ok):
         fail("kernel 3 disagrees with its plain version")

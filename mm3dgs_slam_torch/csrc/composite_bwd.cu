@@ -13,19 +13,46 @@
 //   dL/dalpha_j = T_j (f_j . dC) - ((C . dC) - A_j + dT_fin T_fin) / (1 - alpha_j)
 // with C = acc the pixel's composite. The 0.99 clamp is straight-through.
 //
-// Bound on an H100: operations. Besides the forward walk, each used
-// pixel-pair costs ~40 more f32 operations, and each pair's 6 + nc field
-// gradients are summed over the tile's 256 pixels: warp shuffles, then the
-// 8 warp partials in shared memory, then one atomicAdd per field per pair
-// into dpacked. The design groups 32 pairs per shared-memory reduction (two
-// barriers per group), skips the shuffles of a warp where no lane used the
-// pair, and adds no zero. Float atomics add in no fixed order, so dpacked is
-// not bit-identical from run to run.
+// Bound on an H100: instruction issue and shuffles, not bytes. Besides the
+// forward walk, each used pixel-pair costs ~40 more f32 operations, and each
+// pair's 6 + nc field gradients are summed over the pixels that used it. The
+// walk is kernel 1's warp-culled one (composite_common.cuh: an 8x4 pixel box
+// per warp, a warp visits only the pairs its box may use, two at a time).
+// There is no block-level reduction: a warp where a lane used the pair sums
+// the 6 + nc gradients over its lanes and adds them straight into the
+// pair's dpacked row with global atomics. The sum is a reduce-scatter (16
+// shuffles for all fields, against 5 per field for a butterfly: the SM
+// shuffles one warp-instruction per clock), after which lane 2k holds field
+// k and the lanes add their fields in one scalar atomic instruction. The
+// only barriers are the two per batch load. Float atomics add in no fixed
+// order, so dpacked is not bit-identical from run to run.
 #include "composite_common.cuh"
 
 using namespace mm3dgs;
 
-constexpr int GROUP = 32;  // pairs per shared-memory reduction
+// Sum over the warp of v[0..15]: lane l gets the sum of v[(l >> 1) & 15].
+// Each step halves the slots a lane keeps and swaps the other half with
+// the lane `o` away.
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[16], int lane) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const bool up = lane & 16;
+    v[k] = (up ? v[k + 8] : v[k]) + __shfl_xor_sync(FULL, up ? v[k] : v[k + 8], 16);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool up = lane & 8;
+    v[k] = (up ? v[k + 4] : v[k]) + __shfl_xor_sync(FULL, up ? v[k] : v[k + 4], 8);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const bool up = lane & 4;
+    v[k] = (up ? v[k + 2] : v[k]) + __shfl_xor_sync(FULL, up ? v[k] : v[k + 2], 4);
+  }
+  const bool up = lane & 2;
+  const float r = (up ? v[1] : v[0]) + __shfl_xor_sync(FULL, up ? v[0] : v[1], 2);
+  return r + __shfl_xor_sync(FULL, r, 1);
+}
 
 template <int NC>
 __global__ void __launch_bounds__(PIX)
@@ -37,17 +64,20 @@ composite_bwd_kernel(const float* __restrict__ packed, int ld,
                      const float* __restrict__ tfin,
                      const float* __restrict__ dacc,
                      const float* __restrict__ dtfin,
-                     float* __restrict__ dpacked) {
+                     float* __restrict__ dpacked,
+                     unsigned long long* __restrict__ work) {
   constexpr int NF = F_FEAT + NC;  // fields read = fields with a gradient
-  __shared__ float s_f[NF][PIX];
+  static_assert(NF <= 4 * NV, "the row's float4s read hold the fields");
+  __shared__ float4 s_row[NV][PIX];
+  __shared__ unsigned char s_mask[PIX];
   __shared__ int s_g[PIX];
-  __shared__ float s_red[GROUP][NWARP][NF];
 
   const int tile = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int warp = lane / 32;
-  const float px = (float)((tile % tiles_x) * TILE + lane % TILE);
-  const float py = (float)((tile / tiles_x) * TILE + lane / TILE);
+  const int lane = threadIdx.x % 32;
+  const int pix = tile_pixel(threadIdx.x / 32, lane);
+  const int x0 = (tile % tiles_x) * TILE, y0 = (tile / tiles_x) * TILE;
+  const float px = (float)(x0 + pix % TILE);
+  const float py = (float)(y0 + pix / TILE);
   const int start = tile_start[tile];
   const int count = tile_count[tile];
 
@@ -55,84 +85,59 @@ composite_bwd_kernel(const float* __restrict__ packed, int ld,
   float cdc = 0.0f;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const size_t o = ((size_t)tile * NC + c) * PIX + lane;
+    const size_t o = ((size_t)tile * NC + c) * PIX + pix;
     dC[c] = dacc[o];
     cdc += acc[o] * dC[c];
   }
-  const float tail = dtfin[(size_t)tile * PIX + lane] * tfin[(size_t)tile * PIX + lane];
+  const float tail = dtfin[(size_t)tile * PIX + pix] * tfin[(size_t)tile * PIX + pix];
 
   float T = 1.0f;
   float A = 0.0f;
-  int done = 0;
+  int done = 0, kept = 0, walked = 0;
   for (int base = 0; base < count; base += PIX) {
     if (__syncthreads_count(done) == PIX) break;
-    const int j = base + lane;
-    if (j < count) {
-      const int g = pair_gauss[start + j];
-      s_g[lane] = g;
-      const float* row = packed + (size_t)g * ld;
-#pragma unroll
-      for (int k = 0; k < NF; ++k) s_f[k][lane] = row[k];
-    }
-    __syncthreads();
     const int n = min(PIX, count - base);
-    for (int g0 = 0; g0 < n; g0 += GROUP) {
-      const int m = min(GROUP, n - g0);
-      for (int ii = 0; ii < m; ++ii) {
-        const int i = g0 + ii;
-        float v[NF];
+    kept += load_batch(packed, ld, pair_gauss + start + base, n, x0, y0, s_row, s_mask, s_g);
+    __syncthreads();
+    walked += walk_batch(s_row, s_mask, n, px, py, done, [&](int i, const Pair& p) {
+      float v[16];
 #pragma unroll
-        for (int k = 0; k < NF; ++k) v[k] = 0.0f;
-        bool use = false;
-        if (!done) {
-          float dx, dy, expp, alpha, test_T;
-          const float c0 = s_f[F_C0][i], c1 = s_f[F_C1][i], c2 = s_f[F_C2][i];
-          const int st = pair_step(s_f[F_X][i], s_f[F_Y][i], c0, c1, c2,
-                                   s_f[F_OP][i], px, py, T, dx, dy, expp,
-                                   alpha, test_T);
-          if (st == STEP_STOP) done = 1;
-          if (st == STEP_USE) {
-            use = true;
-            const float w = alpha * T;
-            float fdc = 0.0f;
+      for (int k = 0; k < 16; ++k) v[k] = 0.0f;
+      bool use = false;
+      if (!done && p.hit) {
+        const float test_T = T * (1.0f - p.alpha);
+        if (test_T < 1e-4f) {
+          done = 1;
+        } else {
+          use = true;
+          const float c0 = p.f[F_C0], c1 = p.f[F_C1], c2 = p.f[F_C2];
+          const float dx = p.dx, dy = p.dy, alpha = p.alpha;
+          const float w = alpha * T;
+          float fdc = 0.0f;
 #pragma unroll
-            for (int c = 0; c < NC; ++c) fdc += s_f[F_FEAT + c][i] * dC[c];
-            A += w * fdc;
-            const float dalpha = T * fdc - (cdc - A + tail) / (1.0f - alpha);
-            const float dop = expp * dalpha;
-            const float dpower = s_f[F_OP][i] * dop;
-            v[F_X] = -(c0 * dx + c1 * dy) * dpower;
-            v[F_Y] = -(c2 * dy + c1 * dx) * dpower;
-            v[F_C0] = -0.5f * dx * dx * dpower;
-            v[F_C1] = -dx * dy * dpower;
-            v[F_C2] = -0.5f * dy * dy * dpower;
-            v[F_OP] = dop;
+          for (int c = 0; c < NC; ++c) fdc += p.f[F_FEAT + c] * dC[c];
+          A += w * fdc;
+          const float dalpha = T * fdc - (cdc - A + tail) / (1.0f - alpha);
+          const float dop = p.expp * dalpha;
+          const float dpower = p.f[F_OP] * dop;
+          v[F_X] = -(c0 * dx + c1 * dy) * dpower;
+          v[F_Y] = -(c2 * dy + c1 * dx) * dpower;
+          v[F_C0] = -0.5f * dx * dx * dpower;
+          v[F_C1] = -dx * dy * dpower;
+          v[F_C2] = -0.5f * dy * dy * dpower;
+          v[F_OP] = dop;
 #pragma unroll
-            for (int c = 0; c < NC; ++c) v[F_FEAT + c] = w * dC[c];
-            T = test_T;
-          }
-        }
-        if (__any_sync(0xffffffffu, use)) {
-#pragma unroll
-          for (int k = 0; k < NF; ++k) v[k] = warp_sum(v[k]);
-        }
-        if ((lane & 31) == 0) {
-#pragma unroll
-          for (int k = 0; k < NF; ++k) s_red[ii][warp][k] = v[k];
+          for (int c = 0; c < NC; ++c) v[F_FEAT + c] = w * dC[c];
+          T = test_T;
         }
       }
-      __syncthreads();
-      for (int item = lane; item < m * NF; item += PIX) {
-        const int ii = item / NF;
-        const int k = item - ii * NF;
-        float s = 0.0f;
-#pragma unroll
-        for (int w = 0; w < NWARP; ++w) s += s_red[ii][w][k];
-        if (s != 0.0f) atomicAdd(dpacked + (size_t)s_g[g0 + ii] * 16 + k, s);
-      }
-      __syncthreads();
-    }
+      if (!__any_sync(FULL, use)) return;
+      float* dst = dpacked + (size_t)s_g[i] * 16;
+      const float sum = warp_reduce_scatter(v, lane);
+      if (lane % 2 == 0 && lane / 2 < NF) atomicAdd(dst + lane / 2, sum);
+    });
   }
+  add_work(work, kept, walked);
 }
 
 template <int NC>
@@ -140,13 +145,14 @@ static void launch(const float* packed, int ld, const int* pair_gauss,
                    const int* tile_start, const int* tile_count, int n_tiles,
                    int tiles_x, const float* acc, const float* tfin,
                    const float* dacc, const float* dtfin, float* dpacked,
-                   cudaStream_t s) {
+                   unsigned long long* work, cudaStream_t s) {
   composite_bwd_kernel<NC><<<n_tiles, PIX, 0, s>>>(
       packed, ld, pair_gauss, tile_start, tile_count, tiles_x, acc, tfin,
-      dacc, dtfin, dpacked);
+      dacc, dtfin, dpacked, work);
 }
 
-// dpacked must be zeroed by the caller. Returns cudaGetLastError().
+// dpacked [N, 16] must be zeroed and 16-B aligned by the caller; packed and
+// work as for mm3dgs_composite_fwd. Returns cudaGetLastError().
 extern "C" int mm3dgs_composite_bwd(const float* packed, int ld,
                                     const int* pair_gauss,
                                     const int* tile_start,
@@ -154,11 +160,11 @@ extern "C" int mm3dgs_composite_bwd(const float* packed, int ld,
                                     int tiles_x, int nc, const float* acc,
                                     const float* tfin, const float* dacc,
                                     const float* dtfin, float* dpacked,
-                                    void* stream) {
+                                    unsigned long long* work, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (nc) {  // mapping: nc 3, or 4 with the depth-estimate loss
-    case 3: launch<3>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, s); break;
-    case 4: launch<4>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, s); break;
+    case 3: launch<3>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, work, s); break;
+    case 4: launch<4>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, work, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

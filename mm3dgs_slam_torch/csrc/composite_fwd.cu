@@ -10,13 +10,15 @@
 // slabs are not carried over: each thread walks its pixel sequentially in
 // exact f32, the reference rasterizer's shape.
 //
-// Bound on an H100: operations. Every pixel evaluates every pair its tile
-// walks until it saturates (~20 + 2*nc f32 operations and one exp each);
-// the bytes are the packed rows of the gaussians (64 B each), 4 B per pair
-// and (nc + 1) * 4 B per pixel out, a few MB at 640x480. The design keeps
-// all arithmetic in registers, reads each pair row from device memory once
-// per tile into shared memory (256 pairs per batch), and ends a tile at the
-// first batch boundary where every pixel has saturated.
+// Bound on an H100: instruction issue and latency, not bytes (the packed
+// rows, 4 B per pair and (nc + 1) * 4 B per pixel out are a few MB at
+// 640x480). A pair reaches about a tenth of a tile's pixels, so the kernel
+// culls per warp (composite_common.cuh): each warp owns an 8x4 pixel box,
+// the batch load tests every pair against the 8 boxes once per thread, and
+// a warp walks only the pairs its box may use, with warp-uniform control
+// flow, two pairs at a time so that their exp and alpha overlap. Rows are
+// read as float4s. The per-pixel arithmetic is the reference walk's, op for
+// op, so acc and tfin do not depend on the cull.
 #include "composite_common.cuh"
 
 using namespace mm3dgs;
@@ -27,19 +29,21 @@ composite_fwd_kernel(const float* __restrict__ packed, int ld,
                      const int* __restrict__ pair_gauss,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, int tiles_x,
-                     float* __restrict__ acc, float* __restrict__ tfin) {
-  constexpr int NF = F_FEAT + NC;
-  __shared__ float s_f[NF][PIX];
+                     float* __restrict__ acc, float* __restrict__ tfin,
+                     unsigned long long* __restrict__ work) {
+  __shared__ float4 s_row[NV][PIX];
+  __shared__ unsigned char s_mask[PIX];
 
   const int tile = blockIdx.x;
-  const int lane = threadIdx.x;
-  const float px = (float)((tile % tiles_x) * TILE + lane % TILE);
-  const float py = (float)((tile / tiles_x) * TILE + lane / TILE);
+  const int pix = tile_pixel(threadIdx.x / 32, threadIdx.x % 32);
+  const int x0 = (tile % tiles_x) * TILE, y0 = (tile / tiles_x) * TILE;
+  const float px = (float)(x0 + pix % TILE);
+  const float py = (float)(y0 + pix / TILE);
   const int start = tile_start[tile];
   const int count = tile_count[tile];
 
   float T = 1.0f;
-  int done = 0;
+  int done = 0, kept = 0, walked = 0;
   float a[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) a[c] = 0.0f;
@@ -47,57 +51,54 @@ composite_fwd_kernel(const float* __restrict__ packed, int ld,
   for (int base = 0; base < count; base += PIX) {
     // barrier: the previous batch is consumed before it is overwritten
     if (__syncthreads_count(done) == PIX) break;
-    const int j = base + lane;
-    if (j < count) {
-      const float* row = packed + (size_t)pair_gauss[start + j] * ld;
-#pragma unroll
-      for (int k = 0; k < NF; ++k) s_f[k][lane] = row[k];
-    }
-    __syncthreads();
     const int n = min(PIX, count - base);
-    for (int i = 0; i < n && !done; ++i) {
-      float dx, dy, expp, alpha, test_T;
-      const int st = pair_step(s_f[F_X][i], s_f[F_Y][i], s_f[F_C0][i],
-                               s_f[F_C1][i], s_f[F_C2][i], s_f[F_OP][i], px,
-                               py, T, dx, dy, expp, alpha, test_T);
-      if (st == STEP_SKIP) continue;
-      if (st == STEP_STOP) {
+    kept += load_batch(packed, ld, pair_gauss + start + base, n, x0, y0, s_row, s_mask, nullptr);
+    __syncthreads();
+    walked += walk_batch(s_row, s_mask, n, px, py, done, [&](int, const Pair& p) {
+      if (done || !p.hit) return;
+      const float test_T = T * (1.0f - p.alpha);
+      if (test_T < 1e-4f) {
         done = 1;
-        break;
+        return;
       }
-      const float w = alpha * T;
+      const float w = p.alpha * T;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) a[c] += w * s_f[F_FEAT + c][i];
+      for (int c = 0; c < NC; ++c) a[c] += w * p.f[F_FEAT + c];
       T = test_T;
-    }
+    });
   }
 #pragma unroll
-  for (int c = 0; c < NC; ++c) acc[((size_t)tile * NC + c) * PIX + lane] = a[c];
-  tfin[(size_t)tile * PIX + lane] = T;
+  for (int c = 0; c < NC; ++c) acc[((size_t)tile * NC + c) * PIX + pix] = a[c];
+  tfin[(size_t)tile * PIX + pix] = T;
+  add_work(work, kept, walked);
 }
 
 template <int NC>
 static void launch(const float* packed, int ld, const int* pair_gauss,
                    const int* tile_start, const int* tile_count, int n_tiles,
-                   int tiles_x, float* acc, float* tfin, cudaStream_t s) {
+                   int tiles_x, float* acc, float* tfin, unsigned long long* work,
+                   cudaStream_t s) {
   composite_fwd_kernel<NC><<<n_tiles, PIX, 0, s>>>(
-      packed, ld, pair_gauss, tile_start, tile_count, tiles_x, acc, tfin);
+      packed, ld, pair_gauss, tile_start, tile_count, tiles_x, acc, tfin, work);
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// packed rows are 16-B aligned with ld % 4 == 0; work is null or two
+// counters the kernel adds to. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int mm3dgs_composite_fwd(const float* packed, int ld,
                                     const int* pair_gauss,
                                     const int* tile_start,
                                     const int* tile_count, int n_tiles,
                                     int tiles_x, int nc, float* acc,
-                                    float* tfin, void* stream) {
+                                    float* tfin, unsigned long long* work,
+                                    void* stream) {
   // mapping: nc 3 (4 with the depth-estimate loss); tracking 5; eval 6
   cudaStream_t s = (cudaStream_t)stream;
   switch (nc) {
-    case 3: launch<3>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, s); break;
-    case 4: launch<4>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, s); break;
-    case 5: launch<5>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, s); break;
-    case 6: launch<6>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, s); break;
+    case 3: launch<3>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, work, s); break;
+    case 4: launch<4>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, work, s); break;
+    case 5: launch<5>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, work, s); break;
+    case 6: launch<6>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, work, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -37,23 +37,24 @@ def gaussian_tile_rect(xy, radius, tiles_x: int, tiles_y: int):
     return x0, x1, y0, y1
 
 
-def tile_alpha_keep(tx, ty, xy, conic, tau) -> torch.Tensor:
-    """True for candidate pairs that may contribute (JAX `_tile_alpha_cull`,
-    binning.py:101).
+def box_alpha_keep(x_lo, y_lo, w: int, h: int, xy, conic, tau) -> torch.Tensor:
+    """True for candidate (gaussian, pixel box) pairs that may contribute:
+    the box holds the w x h pixels from (x_lo, y_lo) on.
 
     With Q(d) = -power = 0.5*a*dx^2 + b*dx*dy + 0.5*c*dy^2 (convex), the
-    exact minimum of Q over the tile's pixel box is the center (Q = 0) when
-    it lies inside, else the minimum over one of the four edges, each a 1D
-    convex quadratic with a closed-form clamped argmin. A pair whose min Q
-    exceeds log(255 * op) has alpha < 1/255 at every pixel of the tile,
-    which every compositor already skips; a small margin keeps pairs within
-    floating-point reach of the bound. tx/ty/tau are per candidate, xy
-    [M, 2] and conic [M, 3] are the candidates' Gaussian rows."""
-    t = float(TILE)
-    lx = tx.to(torch.float32) * t - xy[:, 0]
-    ly = ty.to(torch.float32) * t - xy[:, 1]
-    hx = lx + (t - 1.0)
-    hy = ly + (t - 1.0)
+    exact minimum of Q over the box is the center (Q = 0) when it lies
+    inside, else the minimum over one of the four edges, each a 1D convex
+    quadratic with a closed-form clamped argmin. A pair whose min Q exceeds
+    tau = log(255 * op) has alpha < 1/255 at every pixel of the box, which
+    every compositor already skips; a small margin keeps pairs within
+    floating-point reach of the bound. x_lo/y_lo/tau are per candidate, xy
+    [M, 2] and conic [M, 3] are the candidates' Gaussian rows. The CUDA
+    kernels apply the same test, op for op, to their warps' 8x4 boxes
+    (csrc/composite_common.cuh `box_keep`)."""
+    lx = x_lo - xy[:, 0]
+    ly = y_lo - xy[:, 1]
+    hx = lx + (w - 1.0)
+    hy = ly + (h - 1.0)
     a, b, c = conic[:, 0], conic[:, 1], conic[:, 2]
 
     def qval(x, y):
@@ -76,6 +77,18 @@ def tile_alpha_keep(tx, ty, xy, conic, tau) -> torch.Tensor:
     margin = 1e-3 + 1e-5 * (0.5 * a * mx * mx + torch.abs(b) * mx * my
                             + 0.5 * c * my * my)
     return qmin <= tau + margin
+
+
+def alpha_tau(op) -> torch.Tensor:
+    """tau = log(255 * op): alpha = op * exp(power) >= 1/255 needs -power <= tau."""
+    return torch.log(torch.clamp(255.0 * op, min=1e-12))
+
+
+def tile_alpha_keep(tx, ty, xy, conic, tau) -> torch.Tensor:
+    """`box_alpha_keep` over whole 16x16 tiles (JAX `_tile_alpha_cull`,
+    binning.py:101); tx/ty are tile indices."""
+    return box_alpha_keep(tx.to(torch.float32) * float(TILE), ty.to(torch.float32) * float(TILE),
+                          TILE, TILE, xy, conic, tau)
 
 
 @torch.no_grad()
@@ -105,7 +118,7 @@ def build_bins(proj: ProjectedGaussians, cam: Camera) -> TileBins:
     ty = y0[gid] + dy
 
     conic = proj.conic.detach()[gid]
-    tau = torch.log(torch.clamp(255.0 * op[gid], min=1e-12))
+    tau = alpha_tau(op[gid])
     keep = tile_alpha_keep(tx, ty, xy[gid], conic, tau)
     gid, tile = gid[keep], (ty * cam.tiles_x + tx)[keep]
 

@@ -20,12 +20,21 @@ C = sum_j w_j f_j and A_j = sum_{k<=j} w_k (f_k . dC),
 
 Layouts: `packed` rows [N, ld] (ld = 16, or 32 with the pose-Jacobian
 extension); acc channel-major [n_tiles, nc, 256]; tfin [n_tiles, 1, 256].
+
+The kernels split a tile among 8 warps, each an 8x4 pixel box (warp w at
+column w % 2, row w // 2 of the boxes), and a warp looks only at the pairs
+that `binning.box_alpha_keep` keeps for its box; `composite_fwd_plain`'s
+`count_work` counts that work the same way.
 """
 from __future__ import annotations
 
 import torch
 
+from .binning import alpha_tau, box_alpha_keep
 from .camera import PIX, TILE, Camera
+
+BOX_W, BOX_H = 8, 4                       # a warp's pixel box
+BOXES_X, N_BOXES = TILE // BOX_W, PIX // (BOX_W * BOX_H)
 
 
 def tile_pixel_coords(cam: Camera, device):
@@ -56,22 +65,50 @@ def _alpha(row, px, py, valid):
     return dx, dy, expp, alpha, contribute
 
 
+def warp_box_origins(cam: Camera, device):
+    """[n_tiles, 8] float x and y of the first pixel of every warp's box."""
+    t = torch.arange(cam.n_tiles, device=device)[:, None]
+    w = torch.arange(N_BOXES, device=device)[None, :]
+    x = (t % cam.tiles_x) * TILE + (w % BOXES_X) * BOX_W
+    y = (t // cam.tiles_x) * TILE + (w // BOXES_X) * BOX_H
+    return x.to(torch.float32), y.to(torch.float32)
+
+
+def per_box(flags):
+    """[T, 256] pixel flags -> [T, 8] any per warp box."""
+    t = flags.shape[0]
+    rows = TILE // BOX_H
+    return flags.view(t, rows, BOX_H, BOXES_X, BOX_W).any(4).any(2).reshape(t, N_BOXES)
+
+
+WORK_KEYS = ("tested", "used", "stops", "pairs_used", "pairs_walked", "warp_pairs_min",
+             "warp_pairs")
+
+
 @torch.no_grad()
 def composite_fwd_plain(packed, pair_gauss, tile_start, tile_count,
                         cam: Camera, nc: int, count_work: bool = False):
     """Kernel 1's plain version: (acc [T, nc, 256], tfin [T, 1, 256]).
 
-    `count_work` also returns the work the walk needs, as a dict of ints:
+    `count_work` also returns the work of the walk, a dict of ints:
     `tested`, the pixel-pairs a pixel evaluates before it stops; `used`,
-    those it composites (neither skipped nor the stopping one); `pairs_used`,
-    the (tile, pair)s that at least one pixel of the tile composites."""
+    those it composites (neither skipped nor the stopping one); `stops`,
+    the pixels that stop; `pairs_used`, the (tile, pair)s that at least one
+    pixel of the tile composites; `pairs_walked`, the (tile, pair)s a block
+    reaches before it ends at the first batch of 256 where all its pixels
+    have stopped; `warp_pairs_min`, the (tile, pair, warp box)s in which a
+    pixel uses or stops on the pair, the fewest an exact per-warp cull can
+    walk; `warp_pairs`, the (tile, pair, warp box)s among the walked ones
+    that `box_alpha_keep` keeps, which the kernels count in `work[0]`."""
     dev = packed.device
     px, py = tile_pixel_coords(cam, dev)
     n_tiles = cam.n_tiles
     T = torch.ones((n_tiles, PIX), dtype=torch.float32, device=dev)
     done = torch.zeros((n_tiles, PIX), dtype=torch.bool, device=dev)
     acc = torch.zeros((n_tiles, nc, PIX), dtype=torch.float32, device=dev)
-    work = torch.zeros(3, dtype=torch.int64, device=dev)
+    work = torch.zeros(len(WORK_KEYS), dtype=torch.int64, device=dev)
+    if count_work:
+        bx, by = (o.reshape(-1) for o in warp_box_origins(cam, dev))
     n_ranks = int(tile_count.max()) if n_tiles else 0
     for r in range(n_ranks):
         valid, g, row = _gather_rank(packed, pair_gauss, tile_start, tile_count, r)
@@ -80,14 +117,22 @@ def composite_fwd_plain(packed, pair_gauss, tile_start, tile_count,
         newly = contribute & ~done & (test_T < 1e-4)
         use = contribute & ~done & ~newly
         if count_work:
-            work += torch.stack([(valid[:, None] & ~done).sum(), use.sum(),
-                                 use.any(dim=1).sum()])
+            if r % PIX == 0:   # a block ends at a batch boundary
+                live = ~done.all(dim=1)
+            walked = valid & live
+            rows = row.repeat_interleave(N_BOXES, 0)
+            kept = box_alpha_keep(bx, by, BOX_W, BOX_H, rows[:, 0:2], rows[:, 2:5],
+                                  alpha_tau(rows[:, 5])).view(n_tiles, N_BOXES)
+            work += torch.stack([
+                (valid[:, None] & ~done).sum(), use.sum(), newly.sum(),
+                use.any(dim=1).sum(), walked.sum(), per_box(use | newly).sum(),
+                (kept & walked[:, None]).sum()])
         w = torch.where(use, alpha * T, torch.zeros_like(T))
         acc += w[:, None, :] * row[:, 6:6 + nc, None]
         T = torch.where(use, test_T, T)
         done |= newly
     if count_work:
-        return acc, T[:, None, :], dict(zip(("tested", "used", "pairs_used"), work.tolist()))
+        return acc, T[:, None, :], dict(zip(WORK_KEYS, work.tolist()))
     return acc, T[:, None, :]
 
 

@@ -9,6 +9,12 @@ and loaded with ctypes. A wrapper takes the kernel's plain PyTorch version
 device, dtype, shape and contiguity, allocates the outputs, launches the
 kernel on the current stream, raises if the launch was refused, and adds one
 to that kernel's launch count. There is no fallback.
+
+Kernels 1 and 2 take an optional `work` tensor, int64 [2] on the card, to
+which they add the (tile, pair, warp box)s their warp cull keeps
+(`work[0]`, equal to `composite_fwd_plain(count_work=True)`'s `warp_pairs`)
+and the (warp, pair)s the warps walk (`work[1]`, fewer where a warp leaves a
+batch once all its pixels have stopped). The main path passes none.
 """
 from __future__ import annotations
 
@@ -75,9 +81,9 @@ _COMMON = [_P, _I, _P, _P, _P, _I, _I, _I]  # packed, ld, pairs, tiles, nc
 # mapping nc 3 (4 with the depth-estimate loss), tracking 5, evaluation 6.
 FWD_NC, BWD_NC, POSE_BWD_NC = (3, 4, 5, 6), (3, 4), (5, 6)
 FWD = Kernel("composite_fwd", "composite_fwd.cu", "mm3dgs_composite_fwd",
-             _COMMON + [_P, _P, _P])
+             _COMMON + [_P, _P, _P, _P])
 BWD = Kernel("composite_bwd", "composite_bwd.cu", "mm3dgs_composite_bwd",
-             _COMMON + [_P, _P, _P, _P, _P, _P])
+             _COMMON + [_P, _P, _P, _P, _P, _P, _P])
 POSE_BWD = Kernel("composite_pose_bwd", "composite_pose_bwd.cu",
                   "mm3dgs_composite_pose_bwd",
                   _COMMON + [_P, _P, _P, _P, _F, _F, _F, _F, _P, _P])
@@ -145,6 +151,10 @@ def _check_bins(packed, pair_gauss, tile_start, tile_count, cam, ld_min):
     if packed.dim() != 2 or packed.shape[1] < ld_min:
         raise ValueError(f"packed: expected [N, >={ld_min}], got {tuple(packed.shape)}")
     _check("packed", packed, torch.float32)
+    # the kernels read rows as float4s
+    if packed.shape[1] % 4 or packed.data_ptr() % 16:
+        raise ValueError(f"packed: rows must be 16-B aligned (ld {packed.shape[1]}, "
+                         f"address {packed.data_ptr():#x})")
     _check("pair_gauss", pair_gauss, torch.int32)
     _check("tile_start", tile_start, torch.int32, (cam.n_tiles,))
     _check("tile_count", tile_count, torch.int32, (cam.n_tiles,))
@@ -155,18 +165,36 @@ def _check_bins(packed, pair_gauss, tile_start, tile_count, cam, ld_min):
             raise ValueError(f"{name} is on {t.device}, packed on {dev}")
 
 
-def composite_fwd(packed, pair_gauss, tile_start, tile_count, cam: Camera, nc: int):
+def _work_ptr(work, dev) -> int:
+    if work is None:
+        return 0
+    _check("work", work, torch.int64, (2,))
+    if work.device != dev:
+        raise ValueError(f"work is on {work.device}, packed on {dev}")
+    return work.data_ptr()
+
+
+def _no_work_on_cpu(work):
+    if work is not None:
+        raise ValueError("work counts the CUDA kernels' cull; the CPU path has none "
+                         "(composite_fwd_plain(count_work=True) counts the same)")
+
+
+def composite_fwd(packed, pair_gauss, tile_start, tile_count, cam: Camera, nc: int,
+                  work=None):
     """Kernel 1: (acc [n_tiles, nc, 256], tfin [n_tiles, 1, 256])."""
     if not packed.is_cuda:
+        _no_work_on_cpu(work)
         return plain.composite_fwd_plain(packed, pair_gauss, tile_start,
                                          tile_count, cam, nc)
     _check_nc(FWD, nc, FWD_NC)
     _check_bins(packed, pair_gauss, tile_start, tile_count, cam, 6 + nc)
+    work_ptr = _work_ptr(work, packed.device)
     acc = torch.empty((cam.n_tiles, nc, PIX), dtype=torch.float32, device=packed.device)
     tfin = torch.empty((cam.n_tiles, 1, PIX), dtype=torch.float32, device=packed.device)
     FWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
                tile_start.data_ptr(), tile_count.data_ptr(), cam.n_tiles, cam.tiles_x,
-               nc, acc.data_ptr(), tfin.data_ptr(), _stream())
+               nc, acc.data_ptr(), tfin.data_ptr(), work_ptr, _stream())
     return acc, tfin
 
 
@@ -177,20 +205,22 @@ def _check_grads(cam, nc, acc, tfin, dacc, dtfin):
 
 
 def composite_bwd(packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc,
-                  dtfin, cam: Camera, nc: int):
+                  dtfin, cam: Camera, nc: int, work=None):
     """Kernel 2: dpacked [N, 16], the mapping backward."""
     if not packed.is_cuda:
+        _no_work_on_cpu(work)
         return plain.composite_bwd_plain(packed, pair_gauss, tile_start,
                                          tile_count, acc, tfin, dacc, dtfin,
                                          cam, nc)
     _check_nc(BWD, nc, BWD_NC)
     _check_bins(packed, pair_gauss, tile_start, tile_count, cam, 6 + nc)
     _check_grads(cam, nc, acc, tfin, dacc, dtfin)
+    work_ptr = _work_ptr(work, packed.device)
     dpacked = torch.zeros((packed.shape[0], 16), dtype=torch.float32, device=packed.device)
     BWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
                tile_start.data_ptr(), tile_count.data_ptr(), cam.n_tiles, cam.tiles_x,
                nc, acc.data_ptr(), tfin.data_ptr(), dacc.data_ptr(), dtfin.data_ptr(),
-               dpacked.data_ptr(), _stream())
+               dpacked.data_ptr(), work_ptr, _stream())
     return dpacked
 
 

@@ -1,4 +1,6 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card.
+"""The three CUDA kernels against their plain PyTorch versions on the card,
+on a projected 3D scene and on the hard screen-space scenes of
+test_torch_cull.py (long anisotropic splats, saturating layers).
 
 Marked `gpu`; each test decides inside itself whether a card is present and
 skips without one (collection is the same on every xdist worker). Run on a
@@ -16,6 +18,8 @@ from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
 from mm3dgs_slam_torch.ops.render import (ActivatedGaussians, RenderSettings, means_cam_soa,
                                           pose_grads_from_partials, project_for_pose)
 from mm3dgs_slam_torch.ops.sh import rgb_to_sh
+
+from test_torch_cull import screen_scene
 
 pytestmark = pytest.mark.gpu
 POSE = [0.999, 0.02, -0.01, 0.005, 0.01, -0.02, 0.03]
@@ -53,30 +57,76 @@ def _args(bins, cam):
     return bins.pair_gauss, bins.tile_start, bins.tile_count, cam
 
 
-@pytest.mark.parametrize("nc", [3, 4, 5, 6])
-def test_fwd_kernel_matches_plain(nc):
-    g, rs, pose, packed, bins = _scene(_cuda())
+def _hard_scene(kind, dev):
+    return screen_scene(kind, 3, dev)
+
+
+def _fwd_matches_plain(packed, bins, cam, nc):
     before = kernels.FWD.launches
-    acc, tfin = kernels.composite_fwd(packed, *_args(bins, rs.cam), nc)
+    acc, tfin = kernels.composite_fwd(packed, *_args(bins, cam), nc)
     torch.cuda.synchronize()
     assert kernels.FWD.launches == before + 1
-    acc_p, tfin_p = plain.composite_fwd_plain(packed, *_args(bins, rs.cam), nc)
+    acc_p, tfin_p = plain.composite_fwd_plain(packed, *_args(bins, cam), nc)
     for white in (0.0, 1.0):
         torch.testing.assert_close(acc + tfin * white, acc_p + tfin_p * white,
                                    atol=2e-5, rtol=1e-4)
+
+
+def _bwd_matches_plain(packed, bins, cam, nc, dev):
+    acc, tfin = kernels.composite_fwd(packed, *_args(bins, cam), nc)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dacc = torch.randn(acc.shape, generator=gen, device=dev)
+    dtfin = torch.randn(tfin.shape, generator=gen, device=dev)
+    a = (packed, *_args(bins, cam)[:3], acc, tfin, dacc, dtfin, cam, nc)
+    torch.testing.assert_close(kernels.composite_bwd(*a), plain.composite_bwd_plain(*a),
+                               atol=5e-5, rtol=5e-3)
+
+
+@pytest.mark.parametrize("nc", [3, 4, 5, 6])
+def test_fwd_kernel_matches_plain(nc):
+    g, rs, pose, packed, bins = _scene(_cuda())
+    _fwd_matches_plain(packed, bins, rs.cam, nc)
+
+
+@pytest.mark.parametrize("kind", ["anisotropic", "saturating"])
+@pytest.mark.parametrize("nc", [3, 4, 5, 6])
+def test_fwd_kernel_matches_plain_hard_scenes(nc, kind):
+    _fwd_matches_plain(*_hard_scene(kind, _cuda()), nc)
 
 
 @pytest.mark.parametrize("nc", [3, 4])
 def test_bwd_kernel_matches_plain(nc):
     dev = _cuda()
     g, rs, pose, packed, bins = _scene(dev)
-    acc, tfin = kernels.composite_fwd(packed, *_args(bins, rs.cam), nc)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    dacc = torch.randn(acc.shape, generator=gen, device=dev)
-    dtfin = torch.randn(tfin.shape, generator=gen, device=dev)
-    a = (packed, *_args(bins, rs.cam)[:3], acc, tfin, dacc, dtfin, rs.cam, nc)
-    torch.testing.assert_close(kernels.composite_bwd(*a), plain.composite_bwd_plain(*a),
-                               atol=5e-5, rtol=5e-3)
+    _bwd_matches_plain(packed, bins, rs.cam, nc, dev)
+
+
+@pytest.mark.parametrize("kind", ["anisotropic", "saturating"])
+@pytest.mark.parametrize("nc", [3, 4])
+def test_bwd_kernel_matches_plain_hard_scenes(nc, kind):
+    dev = _cuda()
+    _bwd_matches_plain(*_hard_scene(kind, dev), nc, dev)
+
+
+@pytest.mark.parametrize("kind", ["projected", "anisotropic", "saturating"])
+def test_kernel_work_counts_equal_plain_warp_pairs(kind):
+    """Kernels 1 and 2 count the (tile, pair, warp box)s their cull keeps
+    (work[0]) exactly as the plain walk does, and walk no more (work[1])."""
+    dev = _cuda()
+    if kind == "projected":
+        _, rs, _, packed, bins = _scene(dev)
+        cam = rs.cam
+    else:
+        packed, bins, cam = _hard_scene(kind, dev)
+    _, _, want = plain.composite_fwd_plain(packed, *_args(bins, cam), 3, count_work=True)
+    w_fwd = torch.zeros(2, dtype=torch.int64, device=dev)
+    acc, tfin = kernels.composite_fwd(packed, *_args(bins, cam), 3, work=w_fwd)
+    w_bwd = torch.zeros(2, dtype=torch.int64, device=dev)
+    kernels.composite_bwd(packed, *_args(bins, cam)[:3], acc, tfin, torch.ones_like(acc),
+                          torch.ones_like(tfin), cam, 3, work=w_bwd)
+    for kept, walked in (w_fwd.tolist(), w_bwd.tolist()):
+        assert kept == want["warp_pairs"]
+        assert want["warp_pairs_min"] <= walked <= kept < 8 * want["pairs_walked"]
 
 
 @pytest.mark.parametrize("nc", [5, 6])
@@ -107,6 +157,11 @@ def test_wrappers_reject_bad_inputs():
         kernels.composite_fwd(packed[:, :8], *_args(bins, rs.cam), 3)
     with pytest.raises(ValueError):
         kernels.composite_fwd(packed, *_args(bins, rs.cam), 7)
+    with pytest.raises(ValueError):   # rows are read as float4s: 16-B aligned
+        kernels.composite_fwd(packed.reshape(-1)[1:-15].reshape(-1, 16), *_args(bins, rs.cam), 3)
+    with pytest.raises(ValueError):
+        kernels.composite_fwd(packed, *_args(bins, rs.cam), 3,
+                              work=torch.zeros(2, dtype=torch.int32, device=packed.device))
     acc, tfin = kernels.composite_fwd(packed, *_args(bins, rs.cam), 5)
     with pytest.raises(ValueError):   # kernel 2 is compiled for the mapping widths
         kernels.composite_bwd(packed, *_args(bins, rs.cam)[:3], acc, tfin, acc, tfin,
