@@ -10,7 +10,7 @@ Phases (each passes or the script exits non-zero):
      from the first synthetic_tum frame (one Gaussian per pixel) seen from
      the second frame's pose: kernel 1 at nc 3/5/6 on black and white
      backgrounds, kernel 2's dpacked, kernel 3's per-tile partials, dq and dT;
-     kernels 1 and 2's count of (tile, pair, warp box)s their cull keeps
+     each kernel's count of (tile, pair, warp box)s its per-warp cull keeps
      against the plain count; times from CUDA events, bounds from the walk's
      counts in this data;
   4. the main path: the CLI's code path (`python -m mm3dgs_slam_torch
@@ -248,7 +248,8 @@ def check_kernels(cfg, device):
     dacc = torch.randn(acc.shape, generator=gen, device=device)
     dtfin = torch.randn(tfin.shape, generator=gen, device=device)
     pargs = (packed32, *args[:3], acc, tfin, dacc, dtfin, rs.cam, nc)
-    psum_k = kernels.composite_pose_bwd(*pargs)
+    counter = new_work()
+    psum_k = kernels.composite_pose_bwd(*pargs, work=counter)
     psum_p, asum_p = plain.composite_pose_bwd_plain(*pargs, abs_sum=True)
     # A tile's 12 partials are sums over its pixel-pairs that cancel heavily
     # (the line below prints by how much), so float sums in another order
@@ -261,6 +262,7 @@ def check_kernels(cfg, device):
     gk = torch.cat(pose_grads_from_partials(psum_k, pose1[:4]))
     gp = torch.cat(pose_grads_from_partials(psum_p, pose1[:4]))
     err, ok = max_violation(gk, gp, **POSE_TOL)
+    kept, walked = check_work(f"kernel 3 nc={nc}", counter, work)
     tk = cuda_ms(lambda: kernels.composite_pose_bwd(*pargs), 10)
     tp = cuda_ms(lambda: plain.composite_pose_bwd_plain(*pargs), 1, warm=0)
     pose_bytes = 4 * (n_seen * (6 + nc + 12) + n_pairs + 2 * n_tiles
@@ -272,8 +274,8 @@ def check_kernels(cfg, device):
           f"{float(psum_p.abs().max()):.3e}, sum |term| up to {cancel:.3e}x |partial|) "
           f"({'ok' if ok_t else 'FAIL'}); dq {gk[:4].tolist()} vs plain {gp[:4].tolist()}, "
           f"dT {gk[4:].tolist()} vs plain {gp[4:].tolist()}; max abs err {err:.3e} "
-          f"({'ok' if ok else 'FAIL'}); kernel {tk:.4f} ms, plain {tp:.1f} ms, bound "
-          f"{b:.4f} ms ({by})", flush=True)
+          f"({'ok' if ok else 'FAIL'}); {kept} boxes kept, {walked} (warp, pair)s walked; "
+          f"kernel {tk:.4f} ms, plain {tp:.1f} ms, bound {b:.4f} ms ({by})", flush=True)
     if not (ok_t and ok):
         fail("kernel 3 disagrees with its plain version")
     rows.append(dict(name="composite_pose_bwd", route="cuda",

@@ -7,11 +7,12 @@
 // back in batches of 256 pairs; each thread loads one pair's row, read by
 // gaussian id from the packed per-gaussian table, into shared memory, and
 // every pixel then walks the batch in exact float32 with the reference
-// rasterizer's rules (`pair_step`). A block stops at a batch boundary once
-// every pixel has saturated (__syncthreads_count): past the stop, pixels take
-// no pair and gradients are exactly zero.
+// rasterizer's rules (`pair_alpha`; a pixel stops when T * (1 - alpha) <
+// 1e-4, which drops the pair and freezes T). A block stops at a batch
+// boundary once every pixel has saturated (__syncthreads_count): past the
+// stop, pixels take no pair and gradients are exactly zero.
 //
-// Kernels 1 and 2 add an exact warp-level cull. Warp w owns the 8x4 pixel
+// All three walk with an exact warp-level cull. Warp w owns the 8x4 pixel
 // box at column w % 2, row w / 2 of the tile's boxes (`tile_pixel`). While a
 // batch is loaded, each thread tests its pair against the 8 boxes with
 // `box_keep`, the closed-form minimum of -power over a box with a
@@ -23,7 +24,6 @@
 // sequence of used pairs, its stop or its final T changes. With the cull,
 // the (warp, pair)s a tile walks fall from 8 per pair to ~2.2 at 640x480
 // (PERF.md); what is left is the work of the pixels that use the pairs.
-// Kernel 3 does not cull yet: each of its pixels tests every pair.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,8 +42,6 @@ constexpr unsigned FULL = 0xffffffffu;
 // 25-27 the world-frame mean.
 enum : int { F_X = 0, F_Y = 1, F_C0 = 2, F_C1 = 3, F_C2 = 4, F_OP = 5, F_FEAT = 6 };
 
-enum : int { STEP_SKIP = 0, STEP_USE = 1, STEP_STOP = 2 };
-
 // The part of a pixel's test of a pair that does not depend on T, with the
 // reference rasterizer's rules: alpha = min(0.99, op * exp(power)); the
 // pixel skips the pair when power > 0 or alpha < 1/255 (returns false).
@@ -58,19 +56,6 @@ __device__ __forceinline__ bool pair_alpha(float gx, float gy, float c0, float c
   expp = expf(power);
   alpha = fminf(0.99f, op * expp);
   return power <= 0.0f && alpha >= 1.0f / 255.0f;
-}
-
-// One pixel's test of one pair: pair_alpha, then stop when
-// T * (1 - alpha) < 1e-4 (the pair is dropped and T freezes).
-__device__ __forceinline__ int pair_step(float gx, float gy, float c0, float c1,
-                                         float c2, float op, float px, float py,
-                                         float T, float& dx, float& dy,
-                                         float& expp, float& alpha,
-                                         float& test_T) {
-  if (!pair_alpha(gx, gy, c0, c1, c2, op, px, py, dx, dy, expp, alpha)) return STEP_SKIP;
-  test_T = T * (1.0f - alpha);
-  if (test_T < 1e-4f) return STEP_STOP;
-  return STEP_USE;
 }
 
 // A pair's row (fields 0-11) and pair_alpha's results at this lane's pixel.

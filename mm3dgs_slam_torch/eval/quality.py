@@ -140,9 +140,8 @@ def niqe_score(gray: np.ndarray, mu_pris: np.ndarray, cov_pris: np.ndarray,
     return float(np.sqrt(max(d @ icov @ d, 0.0)))
 
 
-_SHIPPED_MODEL = os.path.join(os.path.dirname(__file__), "..", "..",
-                              "mm3dgs_slam_tpu", "assets",
-                              "niqe_model.npz")
+_SHIPPED_MODEL = os.path.normpath(os.path.join(os.path.dirname(__file__), "..", "assets",
+                                               "niqe_model.npz"))
 
 
 class FrameQuality:

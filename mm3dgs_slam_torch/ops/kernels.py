@@ -10,11 +10,13 @@ device, dtype, shape and contiguity, allocates the outputs, launches the
 kernel on the current stream, raises if the launch was refused, and adds one
 to that kernel's launch count. There is no fallback.
 
-Kernels 1 and 2 take an optional `work` tensor, int64 [2] on the card, to
-which they add the (tile, pair, warp box)s their warp cull keeps
-(`work[0]`, equal to `composite_fwd_plain(count_work=True)`'s `warp_pairs`)
-and the (warp, pair)s the warps walk (`work[1]`, fewer where a warp leaves a
-batch once all its pixels have stopped). The main path passes none.
+All three kernels walk a tile with the same per-warp cull
+(`csrc/composite_common.cuh`) and take an optional `work` tensor, int64 [2]
+on the card, to which they add the (tile, pair, warp box)s the cull keeps
+(`work[0]`, equal to `composite_fwd_plain(count_work=True)`'s `warp_pairs`
+whatever nc) and the (warp, pair)s the warps walk (`work[1]`, fewer where a
+warp leaves a batch once all its pixels have stopped). The main path passes
+none.
 """
 from __future__ import annotations
 
@@ -86,7 +88,7 @@ BWD = Kernel("composite_bwd", "composite_bwd.cu", "mm3dgs_composite_bwd",
              _COMMON + [_P, _P, _P, _P, _P, _P, _P])
 POSE_BWD = Kernel("composite_pose_bwd", "composite_pose_bwd.cu",
                   "mm3dgs_composite_pose_bwd",
-                  _COMMON + [_P, _P, _P, _P, _F, _F, _F, _F, _P, _P])
+                  _COMMON + [_P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P])
 KERNELS = (FWD, BWD, POSE_BWD)
 
 
@@ -225,19 +227,21 @@ def composite_bwd(packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc,
 
 
 def composite_pose_bwd(packed32, pair_gauss, tile_start, tile_count, acc, tfin,
-                       dacc, dtfin, cam: Camera, nc: int):
+                       dacc, dtfin, cam: Camera, nc: int, work=None):
     """Kernel 3: per-tile pose-gradient partials [n_tiles, 12]."""
     if not packed32.is_cuda:
+        _no_work_on_cpu(work)
         return plain.composite_pose_bwd_plain(packed32, pair_gauss, tile_start,
                                               tile_count, acc, tfin, dacc,
                                               dtfin, cam, nc)
     _check_nc(POSE_BWD, nc, POSE_BWD_NC)
     _check_bins(packed32, pair_gauss, tile_start, tile_count, cam, 28)
     _check_grads(cam, nc, acc, tfin, dacc, dtfin)
+    work_ptr = _work_ptr(work, packed32.device)
     psum = torch.empty((cam.n_tiles, 12), dtype=torch.float32, device=packed32.device)
     POSE_BWD.launch(packed32.data_ptr(), packed32.shape[1], pair_gauss.data_ptr(),
                     tile_start.data_ptr(), tile_count.data_ptr(), cam.n_tiles, cam.tiles_x,
                     nc, acc.data_ptr(), tfin.data_ptr(), dacc.data_ptr(), dtfin.data_ptr(),
                     cam.fx, cam.fy, cam.cx - 0.5, cam.cy - 0.5, psum.data_ptr(),
-                    _stream())
+                    work_ptr, _stream())
     return psum

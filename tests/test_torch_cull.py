@@ -1,4 +1,4 @@
-"""The per-warp cull of kernels 1 and 2 (csrc/composite_common.cuh), held on
+"""The per-warp cull of the three kernels (csrc/composite_common.cuh), held on
 the CPU: `box_alpha_keep` over 16x16 tiles against JAX `_tile_alpha_cull`;
 on random screen-space scenes, every pixel-pair a walk uses or stops on lies
 in an 8x4 warp box the cull keeps; and `composite_fwd_plain`'s work counts
@@ -162,3 +162,7 @@ def test_work_counter_is_the_cards_alone():
     acc, tfin = kernels.composite_fwd(packed, *bins, cam, 3)
     with pytest.raises(ValueError):
         kernels.composite_bwd(packed, *bins, acc, tfin, acc, tfin, cam, 3, work=work)
+    packed32 = torch.cat([packed, torch.zeros_like(packed)], 1)
+    acc, tfin = kernels.composite_fwd(packed32, *bins, cam, 5)
+    with pytest.raises(ValueError):
+        kernels.composite_pose_bwd(packed32, *bins, acc, tfin, acc, tfin, cam, 5, work=work)

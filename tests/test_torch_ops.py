@@ -2,6 +2,8 @@
 JAX package on the CPU (same numpy inputs through both), plus the port's
 structural rules: no JAX import, CUDA by default, no CPU fallback."""
 import ast
+import io
+import tokenize
 from pathlib import Path
 
 import jax
@@ -53,6 +55,48 @@ def test_port_imports_no_jax():
                 if name.split(".")[0] in ("jax", "jaxlib", "mm3dgs_slam_tpu"):
                     bad.append(f"{path.relative_to(PKG)}: {name}")
     assert not bad, bad
+
+
+def _docstring_starts(tree):
+    """(line, column) where each module, class and function docstring starts."""
+    starts = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            first = node.body[0] if node.body else None
+            if (isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant)
+                    and isinstance(first.value.value, str)):
+                starts.add((first.lineno, first.col_offset))
+    return starts
+
+
+def test_port_strings_name_no_reference_package():
+    """No string literal of the port (docstrings excepted) names the JAX
+    package: the port reads no file under it, by path or by name."""
+    kinds = {tokenize.STRING, getattr(tokenize, "FSTRING_MIDDLE", tokenize.STRING)}
+    bad = []
+    for path in PKG.rglob("*.py"):
+        src = path.read_text()
+        docs = _docstring_starts(ast.parse(src, str(path)))
+        for tok in tokenize.generate_tokens(io.StringIO(src).readline):
+            if tok.type in kinds and tok.start not in docs and "mm3dgs_slam_tpu" in tok.string:
+                bad.append(f"{path.relative_to(PKG)}:{tok.start[0]}: {tok.string}")
+    assert not bad, bad
+
+
+def test_niqe_model_is_the_ports_own_copy(monkeypatch):
+    """FrameQuality() with no path and no MM3DGS_NIQE_MODEL loads the port's
+    own pristine model, a byte-identical copy of the JAX package's."""
+    from mm3dgs_slam_torch.eval import quality
+
+    own = PKG / "assets" / "niqe_model.npz"
+    ref = PKG.parent / "mm3dgs_slam_tpu" / "assets" / "niqe_model.npz"
+    assert own.read_bytes() == ref.read_bytes()
+    monkeypatch.delenv("MM3DGS_NIQE_MODEL", raising=False)
+    real_load, opened = np.load, []
+    monkeypatch.setattr(quality.np, "load",
+                        lambda p, *a, **k: opened.append(Path(p).resolve()) or real_load(p, *a, **k))
+    assert quality.FrameQuality()._model is not None
+    assert opened == [own.resolve()]
 
 
 def test_cuda_is_the_default_and_never_falls_back(monkeypatch):
