@@ -3,14 +3,22 @@ loaded into a plain nested dict with the required keys validated and the
 optional ones defaulted, plus the port's device resolution.
 
 Of the `tpu:` block the port honours only the keys that change results:
-`rebin_every`, `map_rebin_every`, `group_mapping_schedule` and
-`max_new_per_frame`. The keys that size or tune TPU buffers (`pair_cap`,
+`rebin_every`, `map_rebin_every`, `group_mapping_schedule`,
+`max_new_per_frame` and `imu_pad` (the IMU seed integrates at most that many
+samples per frame; the rest are dropped, as in the JAX package). The keys that size or tune TPU buffers (`pair_cap`,
 `max_per_tile`, `chunk`, `max_tiles_per_gaussian`, `bin_*`, `pl_*`,
 `use_pallas`, `grad_bf16`, `mesh_devices`, `prefetch`, `check_overflow`,
 `track_tiles`, `pose_kernel`, `map_tiles`) are read and ignored: binning is
 sized exactly per frame and the fast paths (tile-layout losses, the fused
 pose backward) are always taken. `cfg["device"]` is ignored too; the device
-is an argument of the entry points.
+is an argument of the entry points. `dpt_model` and `dpt_weights` (the
+TinyDPT .npz) choose the monocular-depth estimator when `use_gt_depth` is
+false; `depth_fit` ("ls" | "tum_heuristic") anchors its scale on frame 0.
+
+Config values the port reads but does not run raise NotImplementedError
+when the SLAM is constructed (slam/slam.py `_unported`): `method: splatam`,
+`mapping.do_BA`, checkpoint resume (`iteration`), `debug.create_video`, and
+any dataset but `synthetic` and `utmm` (data/__init__.py).
 """
 from __future__ import annotations
 
@@ -34,11 +42,13 @@ _DEFAULTS: dict[str, Any] = {
     "inputdir": None,
     "save_iterations": [],
     "depth_fit": None,
+    "dpt_weights": None,
     "tpu": {
         "max_new_per_frame": -1,       # -1 = one candidate per pixel
         "rebin_every": 1,              # tracking binning refresh cadence
         "map_rebin_every": 1,          # mapping binning refresh cadence
         "group_mapping_schedule": False,  # contiguous per-keyframe blocks
+        "imu_pad": 64,                 # IMU samples integrated per frame, at most
     },
 }
 

@@ -1,5 +1,8 @@
 """Base RGB-D(-IMU) sequence loader (a copy of the JAX package's numpy-only
-data/base.py; cv2 and imageio are imported where frames are read).
+data/base.py). Frames are read and resized with cv2, imported where frames
+are read: `cv2.imread(IMREAD_UNCHANGED)` with colour turned from BGR to RGB
+gives the arrays the JAX package's imageio reads, so both loaders return
+the same bits.
 
 Re-implements the gradslam-style loading contract the SLAM loop consumes
 (gradslam_datasets/basedataset.py:105-377):
@@ -28,6 +31,19 @@ def natsorted(items):
         return [int(t) if t.isdigit() else t.lower() for t in re.split(r"(\d+)", str(s))]
 
     return sorted(items, key=key)
+
+
+def imread(path) -> np.ndarray:
+    """An image file as stored: [H, W] gray (8 or 16 bit) or [H, W, 3|4]
+    RGB(A), as imageio reads it."""
+    import cv2
+
+    img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise FileNotFoundError(f"cannot read image {path}")
+    if img.ndim == 3:
+        img = cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA if img.shape[2] == 4 else cv2.COLOR_BGR2RGB)
+    return img
 
 
 def as_intrinsics_matrix(fx, fy, cx, cy) -> np.ndarray:
@@ -166,16 +182,15 @@ class RGBDDataset:
 
     def __getitem__(self, index: int):
         import cv2
-        import imageio.v2 as imageio
 
-        color = np.asarray(imageio.imread(self.color_paths[index]), dtype=np.float64)
+        color = np.asarray(imread(self.color_paths[index]), dtype=np.float64)
         if self.distortion is not None:
             K = as_intrinsics_matrix(self.fx, self.fy, self.cx, self.cy)
             color = cv2.undistort(color, K, self.distortion)
         color = self._preprocess_color(color)
 
         dpath = self.depth_paths[index]
-        depth_raw = np.asarray(imageio.imread(dpath), dtype=np.int64)
+        depth_raw = np.asarray(imread(dpath), dtype=np.int64)
         depth = self._preprocess_depth(depth_raw)
 
         K = as_intrinsics_matrix(self.fx, self.fy, self.cx, self.cy)

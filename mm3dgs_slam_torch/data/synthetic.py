@@ -67,6 +67,40 @@ def make_scene(seed: int, n: int, cam: Camera, textured: bool = False,
     return {k: np.asarray(v, np.float32) for k, v in out.items()}
 
 
+def trajectory_w2c(s: float, orbit: float, dtype=np.float32) -> np.ndarray:
+    """The smooth camera path at s in [0, 1] (smooth beyond, too): a gentle
+    arc with a yaw sweep and a forward drift; w2c."""
+    ang = 0.5 * np.pi * s
+    yaw = 0.05 * np.sin(ang)
+    cy_, sy_ = np.cos(yaw), np.sin(yaw)
+    w2c = np.eye(4, dtype=dtype)
+    w2c[:3, :3] = np.array([[cy_, 0, sy_], [0, 1, 0], [-sy_, 0, cy_]])
+    w2c[:3, 3] = [orbit * np.sin(ang), 0.5 * orbit * (1 - np.cos(ang)), 0.1 * s]
+    return w2c
+
+
+def render_frame(scene: ActivatedGaussians, w2c: np.ndarray, rs: RenderSettings):
+    """The oracle's render of `scene` from w2c: (rgb [3, H, W] in [0, 1],
+    depth [H, W] in scene units, 0 where the silhouette is below 0.5)."""
+    dev = scene.xyz.device
+    pose7 = w2c_to_pose(torch.as_tensor(w2c, device=dev))
+    img6 = composite_oracle(project_for_pose(scene, pose7, rs), rs.cam, torch.zeros(6, device=dev))
+    rgb = torch.clamp(img6[:3], 0, 1).cpu().numpy()
+    sil = img6[4].cpu().numpy()
+    depth = img6[3].cpu().numpy()
+    return rgb, np.where(sil > 0.5, depth / np.maximum(sil, 1e-6), 0.0).astype(np.float32)
+
+
+def scene_gaussians(scene: dict, device=None) -> ActivatedGaussians:
+    """Scene arrays (make_scene's dict) -> ActivatedGaussians on `device`."""
+    t = {k: torch.as_tensor(np.asarray(scene[k], np.float32), device=device)
+         for k in SCENE_FIELDS}
+    return ActivatedGaussians(
+        xyz=t["xyz"], scales=t["scales"], rotations=t["rotations"],
+        opacity=t["opacity"], shs=rgb_to_sh(t["rgb"])[:, None, :],
+        alive=torch.ones(t["xyz"].shape[0], dtype=torch.bool, device=device))
+
+
 class SyntheticDataset:
     has_imu = False
 
@@ -90,40 +124,17 @@ class SyntheticDataset:
         if scene is None:
             scene = make_scene(seed, n_gauss, cam, textured=bool(syn.get("textured", False)),
                                occluders=int(syn.get("occluders", 0)))
-        t = {k: torch.as_tensor(np.asarray(scene[k], np.float32), device=device)
-             for k in SCENE_FIELDS}
-        self.scene = ActivatedGaussians(
-            xyz=t["xyz"], scales=t["scales"], rotations=t["rotations"],
-            opacity=t["opacity"], shs=rgb_to_sh(t["rgb"])[:, None, :],
-            alive=torch.ones(t["xyz"].shape[0], dtype=torch.bool, device=device))
+        self.scene = scene_gaussians(scene, device)
         rs = RenderSettings(cam=cam)
-
-        # smooth trajectory: gentle arc + forward drift (w2c convention)
-        poses_w2c = []
-        for i in range(n_frames):
-            s = i / max(n_frames - 1, 1)
-            ang = 0.5 * np.pi * s
-            yaw = 0.05 * np.sin(ang)
-            cy_, sy_ = np.cos(yaw), np.sin(yaw)
-            w2c = np.eye(4, dtype=np.float32)
-            w2c[:3, :3] = np.array([[cy_, 0, sy_], [0, 1, 0], [-sy_, 0, cy_]])
-            w2c[:3, 3] = [orbit * np.sin(ang), 0.5 * orbit * (1 - np.cos(ang)), 0.1 * s]
-            poses_w2c.append(w2c)
-
         self.frames, self.poses = [], []
         noise_rng = np.random.default_rng(seed + 1)
-        bg = torch.zeros(6, device=device)
-        for w2c in poses_w2c:
-            pose7 = w2c_to_pose(torch.as_tensor(w2c, device=device))
-            img6 = composite_oracle(project_for_pose(self.scene, pose7, rs), cam, bg)
-            rgb = torch.clamp(img6[:3], 0, 1).cpu().numpy()
+        for i in range(n_frames):
+            w2c = trajectory_w2c(i / max(n_frames - 1, 1), orbit)
+            rgb, d = render_frame(self.scene, w2c, rs)
             if noise_std > 0.0:
                 rgb = np.clip(rgb + noise_rng.normal(0.0, noise_std, rgb.shape).astype(np.float32),
                               0.0, 1.0)
-            sil = img6[4].cpu().numpy()
-            depth = img6[3].cpu().numpy()
-            d = np.where(sil > 0.5, depth / np.maximum(sil, 1e-6), 0.0)
-            self.frames.append((rgb, d.astype(np.float32)))
+            self.frames.append((rgb, d))
             self.poses.append(np.linalg.inv(w2c))  # c2w
 
         sl = slice(start, None if end == -1 else end, stride or 1)

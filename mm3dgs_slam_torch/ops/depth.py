@@ -1,6 +1,7 @@
-"""Depth utilities the mapper uses (JAX counterpart: ops/depth.py):
-torch-style median, back-projection and the covisibility fraction. The
-monocular-depth fit (`get_scale_shift_ls`) is not ported yet."""
+"""Depth utilities (JAX counterpart: ops/depth.py): torch-style median,
+back-projection, the covisibility fraction, and the monocular-depth
+scale/shift fit (`get_scale_shift_ls`). The colormap export
+(`depth_to_rgb_np`) feeds only the debug video, which is not ported."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +12,28 @@ def torch_style_median(x):
     torch.Tensor.median() returns; its keyframe masks depend on it)."""
     flat, _ = torch.sort(x.reshape(-1))
     return flat[(flat.shape[0] - 1) // 2]
+
+
+def get_scale_shift_ls(est_depth, render_depth, mask=None):
+    """Weighted closed-form least squares of (scale, shift) in
+    1/render ~= scale * est + shift over the masked pixels with a positive
+    inverse render (utils/depth_utils.py:44-99); metric depth is then
+    1 / (scale * est + shift) (slam/SLAM.py:423,448)."""
+    inv_render = 1.0 / render_depth
+    w = inv_render > 0
+    if mask is not None:
+        w = mask & w
+    w = w.to(torch.float32).reshape(-1)
+    e = est_depth.reshape(-1)
+    z = torch.where(w > 0, inv_render.reshape(-1), torch.zeros((), device=e.device))
+    s11 = torch.sum(w * e * e)
+    s12 = torch.sum(w * e)
+    s22 = torch.sum(w)
+    b1 = torch.sum(w * e * z)
+    b2 = torch.sum(w * z)
+    det = s11 * s22 - s12 * s12
+    det = torch.where(torch.abs(det) < 1e-12, torch.full_like(det, 1e-12), det)
+    return (s22 * b1 - s12 * b2) / det, (s11 * b2 - s12 * b1) / det
 
 
 def backproject_all_pixels(depth, w2c, fx, fy, cx, cy):

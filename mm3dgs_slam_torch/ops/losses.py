@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from .pose import quat_multiply
+
 _EPS_COUNT = 1e-12
 
 
@@ -39,7 +41,12 @@ def pearson_corrcoef(x, y, mask=None):
     dx = (x - torch.sum(x * w) / n) * w
     dy = (y - torch.sum(y * w) / n) * w
     cov = torch.sum(dx * dy)
-    return cov / torch.clamp(torch.sqrt(torch.sum(dx * dx) * torch.sum(dy * dy)), min=_EPS_COUNT)
+    # The square root of the clamped product: the JAX package's value, but on
+    # an empty mask (product 0) the gradient is 0, not 0 * inf = NaN. Tracking
+    # meets an empty mask when the pose leaves the bins it reuses between
+    # rebins (tpu.rebin_every), and a NaN there poisons the pose.
+    return cov / torch.sqrt(torch.clamp(torch.sum(dx * dx) * torch.sum(dy * dy),
+                                        min=_EPS_COUNT * _EPS_COUNT))
 
 
 def pearson_loss(render, estimate, mask=None, invert_estimate: bool = True):
@@ -50,6 +57,20 @@ def pearson_loss(render, estimate, mask=None, invert_estimate: bool = True):
         b = 1.0 - pearson_corrcoef(1.0 / (estimate + 200.0), render, mask)
         return torch.minimum(a, b)
     return 1.0 - pearson_corrcoef(estimate, render, mask)
+
+
+def rel_pose_loss(camera_pose, initial_pose):
+    """(translation L2-sum, quaternion geodesic angle) between two 7-vector
+    poses (utils/loss_utils.py:20-40). The arccos argument is clamped
+    strictly inside 1: tracking starts at the seed, where |diff[0]| is 1 and
+    d/dx arccos is infinite, so an exact clamp at 1 would give the first
+    Adam step a NaN gradient; inside the clamp the angle's gradient is 0."""
+    t_err = torch.sum((camera_pose[4:] - initial_pose[4:]) ** 2)
+    gtconj = initial_pose[:4] * initial_pose.new_tensor([1.0, -1.0, -1.0, -1.0])
+    diff = quat_multiply(camera_pose[:4], gtconj)
+    diff = diff / torch.clamp(torch.linalg.norm(diff), min=1e-12)
+    angle_err = 2.0 * torch.arccos(torch.clamp(torch.abs(diff[0]), 0.0, 1.0 - 1e-7))
+    return t_err, angle_err
 
 
 def _banded(n: int, g: torch.Tensor, half: int):

@@ -62,11 +62,11 @@ def main(argv=None) -> int:
         for idx in range(args.frames - 1):
             slam._step(idx)
         idx = args.frames - 1
-        color, depth, _, c2w, _ = slam.dataset[idx]
+        color, depth, _, c2w, imu = slam.dataset[idx]
         color_np = np.transpose(color, (2, 0, 1)) / 255.0
         depth_np = depth[..., 0]
         gt_color, gt_depth = slam._dev(color_np), slam._dev(depth_np)
-        seed = slam._dev(slam._seed_pose(idx))
+        seed = slam._dev(slam._seed_pose(idx, imu))
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
         args_t = (slam.gaussians.activated(), seed, gt_color, gt_depth,

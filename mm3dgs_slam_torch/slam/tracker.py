@@ -5,13 +5,17 @@ slam/tracker.py:45-266).
   * vigs/mm3dgs loss in the compositor's channel-major tile layout
     (JAX `tracking_loss_tiles`, tracker.py:136-216): L1 over the pixels
     with silhouette > 0.99, at nc = 5 (E[z^2] feeds only splatam), plus the
-    optional Pearson depth term,
-  * gradients from the fused pose backward (kernel 3),
+    optional Pearson depth term and the optional IMU prior (`rel_pose_loss`
+    against the seed, its gradient stopped; tracker.py:146-155),
+  * gradients from the fused pose backward (kernel 3), the IMU prior's
+    added by autograd beside them,
   * separate Adam groups for q and T with torch defaults (tracker.py:233-246),
   * bins rebuilt when i % rebin_every == 0 at the pose with its gradient
     stopped,
   * the returned pose is the LAST iteration's, reproducing the reference's
     ineffective best-candidate rebinding (tracker.py:167-181).
+
+The splatam loss is not ported: `method: splatam` raises.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.binning import build_bins
-from ..ops.losses import masked_mean, pearson_loss
+from ..ops.losses import masked_mean, pearson_loss, rel_pose_loss
 from ..ops.render import (ActivatedGaussians, RenderSettings, project_for_pose,
                           render_tiles_pose, tile_pixel_valid, to_tiles)
 
@@ -30,9 +34,13 @@ class TrackSettings(NamedTuple):
 
     rs: RenderSettings
     iters: int
+    method: str = "vigs"            # 'vigs' | 'mm3dgs' (one loss)
     use_gt_depth: bool = True
     use_depth_estimate_loss: bool = False
     pearson_weight: float = 0.0
+    use_imu_loss: bool = False
+    imu_T_weight: float = 0.0
+    imu_q_weight: float = 0.0
     position_lr: float = 0.001
     rotation_lr: float = 0.003
     b1: float = 0.9
@@ -42,8 +50,9 @@ class TrackSettings(NamedTuple):
 
 
 def tracking_loss_tiles(g: ActivatedGaussians, q, T, gt_color_t, gt_depth_t,
-                        est_depth_t, valid, ts: TrackSettings, bins):
-    """The vigs/mm3dgs tracking loss in tile layout [n_tiles, C, 256]."""
+                        est_depth_t, valid, initial_pose, ts: TrackSettings, bins):
+    """The vigs/mm3dgs tracking loss in tile layout [n_tiles, C, 256];
+    `initial_pose` [7] is the seed the IMU prior pulls towards."""
     out = render_tiles_pose(g, q, T, ts.rs, bins, nc=5)
     image, depth, silhouette = out[:, :3], out[:, 3], out[:, 4]
     presence = (silhouette > 0.99) & valid
@@ -55,6 +64,9 @@ def tracking_loss_tiles(g: ActivatedGaussians, q, T, gt_color_t, gt_depth_t,
         else:
             loss = loss + ts.pearson_weight * pearson_loss(
                 depth, est_depth_t, mask=presence, invert_estimate=True)
+    if ts.use_imu_loss:
+        t_err, q_err = rel_pose_loss(torch.cat([q, T]), initial_pose)
+        loss = loss + ts.imu_T_weight * t_err + ts.imu_q_weight * q_err
     return loss
 
 
@@ -64,6 +76,8 @@ def track_frame(g: ActivatedGaussians, pose_init, gt_color, gt_depth, est_depth,
 
     g: the frozen map; pose_init [7]; gt_color [3, H, W]; gt_depth and
     est_depth [H, W] (est_depth may be zeros when unused)."""
+    if ts.method == "splatam":
+        raise NotImplementedError("the splatam tracking loss is not ported to mm3dgs_slam_torch")
     cam = ts.rs.cam
     g = ActivatedGaussians(*(t.detach() for t in g))
     gt_color_t = to_tiles(gt_color, cam)
@@ -71,6 +85,7 @@ def track_frame(g: ActivatedGaussians, pose_init, gt_color, gt_depth, est_depth,
     est_depth_t = to_tiles(est_depth, cam)
     valid = tile_pixel_valid(cam, gt_color.device)
 
+    initial_pose = pose_init.detach().clone()
     q = pose_init[:4].detach().clone()
     T = pose_init[4:].detach().clone()
     mq, vq = torch.zeros_like(q), torch.zeros_like(q)
@@ -85,7 +100,7 @@ def track_frame(g: ActivatedGaussians, pose_init, gt_color, gt_depth, est_depth,
         qv = q.requires_grad_(True)
         Tv = T.requires_grad_(True)
         loss = tracking_loss_tiles(g, qv, Tv, gt_color_t, gt_depth_t, est_depth_t,
-                                   valid, ts, bins)
+                                   valid, initial_pose, ts, bins)
         gq, gT = torch.autograd.grad(loss, (qv, Tv))
         with torch.no_grad():
             step = i + 1

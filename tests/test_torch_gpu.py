@@ -202,3 +202,24 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):   # kernel 2 is compiled for the mapping widths
         kernels.composite_bwd(packed, *_args(bins, rs.cam)[:3], acc, tfin, acc, tfin,
                               rs.cam, 5)
+
+
+@pytest.mark.parametrize("hw", [(90, 100), (42, 64)])
+def test_kernels_on_partial_tiles(hw):
+    """Heights (and a width) that are not multiples of 16, as UTMM.yml's 330
+    rows: the last tile row is partial. Kernel 1 at nc 4 and 5, kernel 2 at
+    nc 4, kernel 3 at nc 5 against their plain versions."""
+    dev = _cuda()
+    h, w = hw
+    g, rs, pose, packed, bins = _scene(dev, n=2000, h=h, w=w, f=90.0)
+    assert h % 16 and rs.cam.tiles_y * 16 > h
+    for nc in (4, 5):
+        _fwd_matches_plain(packed, bins, rs.cam, nc)
+    _bwd_matches_plain(packed, bins, rs.cam, 4, dev)
+    ext = conic_pose_jacobian_rows(means_cam_soa(g.xyz, pose), g.scales, g.rotations, g.xyz,
+                                   rs.cam)
+    psum_k, psum_p = _pose_bwd_matches_plain(torch.cat([packed, ext], 1).contiguous(), bins,
+                                             rs.cam, 5, dev)
+    torch.testing.assert_close(torch.cat(pose_grads_from_partials(psum_k, pose[:4])),
+                               torch.cat(pose_grads_from_partials(psum_p, pose[:4])),
+                               rtol=5e-4, atol=1e-4)
