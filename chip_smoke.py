@@ -32,16 +32,32 @@ Phases (each passes or the script exits non-zero):
      on the IMU seed closer to GT than the zero-velocity seed; every kernel
      launched, ATE < 0.03 m, PSNR > 17 dB;
   5b. the same with the IMU pose prior on (tracking.use_imu_loss at
-     tests/test_e2e_imu.py's weights; UTMM.yml leaves it off): the gates of
-     5, and the last frame, tracked again from its seed on the final map,
-     ending nearer the seed with the prior than without;
-  6. the monocular path: configs/synthetic_tum.yml (5 frames) with
+     tests/test_e2e_imu.py's weights; UTMM.yml leaves it off), 3 frames
+     read: the gates of 5, and the frame that, tracked again from its seed on
+     the final map without the prior, ends farthest from it, ending nearer
+     the seed with the prior than without;
+  6. the monocular path: configs/synthetic_tum.yml (3 frames) with
      use_gt_depth false, the synthetic_affine estimator and the
      depth-estimate loss on in tracking and mapping; every kernel launched,
-     ATE < 0.06 m, PSNR > 15 dB (tests/test_e2e_mono.py's gates).
-Then one JSON line per the kernels (launches from phase 4, with each path's
-counts and the 640x330 checks beside them), the nvidia-smi line, and the
-last line {"ok": true, "device": {...}}.
+     ATE < 0.06 m, PSNR > 15 dB (tests/test_e2e_mono.py's gates);
+  7. splatam: configs/synthetic_tum.yml (5 frames) with method splatam and
+     debug.create_video on; kernel 3 launched at nc 6 and kernel 2 at nc 4,
+     the keyframes {0, 1, 3}, ATE < 0.03 m, PSNR > 17 dB, and the mp4 read
+     back with cv2: one 2x3-panel frame per tracked frame;
+  8. bundle adjustment: configs/synthetic_tum.yml (5 frames) with
+     mapping.do_BA and save_iterations [3]; ATE < 0.03 m, PSNR > 17 dB, the
+     window poses finite, an earlier keyframe moved by BA (nonzero, below
+     0.05 m and 0.05 rad), the mapping rebins and ms/iteration beside phase
+     4's; then the port resumed from that checkpoint (poses as saved, the
+     keyframe count, a finite evaluation) and the LPIPS proxy of one frame
+     on the card against the CPU (relative 1e-4).
+Phase 3 also holds kernel 3 at nc 6 (splatam tracking) and bundle
+adjustment's pose gradient (kernel 2's dpacked chained through the
+projection into the pose) against the plain chain; every path's
+lpips_proxy_list must be finite. Then one JSON line per the kernels
+(launches from phase 4, with each path's counts and the 640x330 and nc 6
+checks beside them), the nvidia-smi line, and the last line
+{"ok": true, "device": {...}}.
 It needs CUDA and the repository around it; without either it exits non-zero
 and prints no result.
 """
@@ -58,7 +74,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-N_FRAMES = 5             # synthetic_tum frames of phases 4 and 6
+N_FRAMES = 5             # synthetic_tum frames of phases 4, 7 and 8
+SHORT_FRAMES = 3         # frames read in phases 5b and 6 (the script's time limit)
 UTMM_FRAMES = 10         # written; UTMM.yml's stride 2 reads 5
 UTMM_GAUSSIANS = 20000   # the UT-MM sequence's scene (synthetic_tum.yml's count)
 IMU_PRIOR_WEIGHTS = dict(imu_T_weight=0.5, imu_q_weight=0.5)   # tests/test_e2e_imu.py's
@@ -92,6 +109,7 @@ IMG_TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=5e-5, rtol=5e-3)
 PARTIAL_ATOL = 1e-5     # of sum |term| per kernel-3 partial (~170 f32 epsilons)
 POSE_TOL = dict(atol=1e-4, rtol=5e-4)   # dq, dT: rtol 5e-4 with a tiny atol
+BA_ATOL = 1e-5          # of sum |term| per component of BA's pose gradient
 
 
 def fail(msg: str):
@@ -207,11 +225,11 @@ def check_scene(frames, rs, device):
     return g, pose1, rs, proj.packed.contiguous(), bins
 
 
-def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_nc=5, tag="check"):
+def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="check"):
     """Each kernel against its plain version on `scene` (check_scene's
     tuple): kernel 1 at each of `fwd_ncs` (its row at nc 5, the tracking
-    width), kernel 2 at `bwd_nc`, kernel 3 at `pose_nc`; returns the rows of
-    the kernels line (launches filled in later)."""
+    width), kernel 2 at `bwd_nc`, kernel 3 at each of `pose_ncs`; returns the
+    rows of the kernels line (launches filled in later)."""
     import torch
 
     from mm3dgs_slam_torch.ops import composite as plain
@@ -310,52 +328,103 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_nc=5, tag="check"):
                      max_abs_err=err, ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
                      library_ms=None))
 
-    # kernel 3: the per-tile partials, then dq and dT, at the tracking width
-    nc = pose_nc
+    # kernel 3: the per-tile partials, then dq and dT, at each tracking width
+    # (nc 5 vigs/mm3dgs, nc 6 splatam); the row holds the first width's
+    # numbers and the others' beside them
+    k3 = {}
     with torch.no_grad():
         packed32 = torch.cat([packed, conic_pose_jacobian_rows(
             means_cam_soa(g.xyz, pose1), effective_scales(g.scales, rs), g.rotations, g.xyz,
             rs.cam)], 1).contiguous()
-        acc, tfin = kernels.composite_fwd(packed32, *args, nc)
+    for nc in pose_ncs:
+        with torch.no_grad():
+            acc, tfin = kernels.composite_fwd(packed32, *args, nc)
+        dacc = torch.randn(acc.shape, generator=gen, device=device)
+        dtfin = torch.randn(tfin.shape, generator=gen, device=device)
+        pargs = (packed32, *args[:3], acc, tfin, dacc, dtfin, rs.cam, nc)
+        counter = new_work()
+        psum_k = kernels.composite_pose_bwd(*pargs, work=counter)
+        psum_p, asum_p = plain.composite_pose_bwd_plain(*pargs, abs_sum=True)
+        # A tile's 12 partials are sums over its pixel-pairs that cancel heavily
+        # (the line below prints by how much), so float sums in another order
+        # differ in proportion to the terms, not to the result: the atol is
+        # PARTIAL_ATOL of sum |term|, the rtol the gradient one.
+        err_t, ok_t = max_violation(psum_k, psum_p, atol=PARTIAL_ATOL * asum_p,
+                                    rtol=GRAD_TOL["rtol"])
+        rel_t = float(((psum_k - psum_p).abs() / asum_p.clamp_min(1e-30)).max())
+        cancel = float((asum_p / psum_p.abs().clamp_min(1e-30)).max())
+        gk = torch.cat(pose_grads_from_partials(psum_k, pose1[:4]))
+        gp = torch.cat(pose_grads_from_partials(psum_p, pose1[:4]))
+        err, ok = max_violation(gk, gp, **POSE_TOL)
+        kept, walked = check_work(f"kernel 3 nc={nc}", counter, work, tag)
+        tk = cuda_ms(lambda: kernels.composite_pose_bwd(*pargs), 10)
+        tp = cuda_ms(lambda: plain.composite_pose_bwd_plain(*pargs), 1, warm=0)
+        pose_bytes = 4 * (n_seen * (6 + nc + 12) + n_pairs + 2 * n_tiles
+                          + n_pix * (2 * nc + 2) + n_tiles * 12)
+        b, by = bound_ms(pose_bytes, n_pix * OPS_PIX_BWD(nc) + evaluated * OPS_TEST
+                         + used * OPS_POSE_USE(nc) + pairs_used * OPS_POSE_PAIR(nc))
+        print(f"[{tag}] kernel 3 nc={nc}: per-tile partials [{n_tiles}, 12] max abs err "
+              f"{err_t:.3e}, at most {rel_t:.3e} of sum |term| (max |partial| "
+              f"{float(psum_p.abs().max()):.3e}, sum |term| up to {cancel:.3e}x |partial|) "
+              f"({'ok' if ok_t else 'FAIL'}); dq {gk[:4].tolist()} vs plain {gp[:4].tolist()}, "
+              f"dT {gk[4:].tolist()} vs plain {gp[4:].tolist()}; max abs err {err:.3e} "
+              f"({'ok' if ok else 'FAIL'}); {kept} boxes kept, {walked} (warp, pair)s walked; "
+              f"kernel {tk:.4f} ms, plain {tp:.1f} ms, bound {b:.4f} ms ({by})", flush=True)
+        if not (ok_t and ok):
+            fail(f"kernel 3 at nc {nc} disagrees with its plain version")
+        k3[nc] = dict(max_abs_err=max(err_t, err), ms=tk, plain_ms=tp, bound_ms=b, bound_by=by)
+    row = dict(name="composite_pose_bwd", route="cuda",
+               source="mm3dgs_slam_torch/csrc/composite_pose_bwd.cu",
+               replaces="mm3dgs_slam_tpu/ops/pallas_composite.py:858",
+               **k3[pose_ncs[0]], library_ms=None)
+    for nc in pose_ncs[1:]:
+        row[f"nc{nc}"] = k3[nc]
+    rows.append(row)
+    return rows
+
+
+def check_ba_chain(scene, nc=3, tag="check"):
+    """Bundle adjustment's pose gradient on `scene`: the port's path
+    (autograd through composite_packed, kernel 2's dpacked, into the pose of
+    the projection) against the same chain through the plain backward. The
+    chain is J^T dpacked with J = d packed / d pose [7, N, 16] by
+    forward-mode AD; the per-Gaussian terms cancel, so the atol is BA_ATOL
+    of their sum |term|. Returns the largest error over sum |term|."""
+    import torch
+
+    from mm3dgs_slam_torch.ops import composite as plain
+    from mm3dgs_slam_torch.ops import kernels
+    from mm3dgs_slam_torch.ops.render import composite_packed, project_for_pose
+
+    g, pose1, rs, packed, bins = scene
+    device = packed.device
+    args = (bins.pair_gauss, bins.tile_start, bins.tile_count)
+    gen = torch.Generator(device=device).manual_seed(1)
+    acc, tfin = kernels.composite_fwd(packed, *args, rs.cam, nc)
     dacc = torch.randn(acc.shape, generator=gen, device=device)
     dtfin = torch.randn(tfin.shape, generator=gen, device=device)
-    pargs = (packed32, *args[:3], acc, tfin, dacc, dtfin, rs.cam, nc)
-    counter = new_work()
-    psum_k = kernels.composite_pose_bwd(*pargs, work=counter)
-    psum_p, asum_p = plain.composite_pose_bwd_plain(*pargs, abs_sum=True)
-    # A tile's 12 partials are sums over its pixel-pairs that cancel heavily
-    # (the line below prints by how much), so float sums in another order
-    # differ in proportion to the terms, not to the result: the atol is
-    # PARTIAL_ATOL of sum |term|, the rtol the gradient one.
-    err_t, ok_t = max_violation(psum_k, psum_p, atol=PARTIAL_ATOL * asum_p,
-                                rtol=GRAD_TOL["rtol"])
-    rel_t = float(((psum_k - psum_p).abs() / asum_p.clamp_min(1e-30)).max())
-    cancel = float((asum_p / psum_p.abs().clamp_min(1e-30)).max())
-    gk = torch.cat(pose_grads_from_partials(psum_k, pose1[:4]))
-    gp = torch.cat(pose_grads_from_partials(psum_p, pose1[:4]))
-    err, ok = max_violation(gk, gp, **POSE_TOL)
-    kept, walked = check_work(f"kernel 3 nc={nc}", counter, work, tag)
-    tk = cuda_ms(lambda: kernels.composite_pose_bwd(*pargs), 10)
-    tp = cuda_ms(lambda: plain.composite_pose_bwd_plain(*pargs), 1, warm=0)
-    pose_bytes = 4 * (n_seen * (6 + nc + 12) + n_pairs + 2 * n_tiles
-                      + n_pix * (2 * nc + 2) + n_tiles * 12)
-    b, by = bound_ms(pose_bytes, n_pix * OPS_PIX_BWD(nc) + evaluated * OPS_TEST
-                     + used * OPS_POSE_USE(nc) + pairs_used * OPS_POSE_PAIR(nc))
-    print(f"[{tag}] kernel 3 nc={nc}: per-tile partials [{n_tiles}, 12] max abs err "
-          f"{err_t:.3e}, at most {rel_t:.3e} of sum |term| (max |partial| "
-          f"{float(psum_p.abs().max()):.3e}, sum |term| up to {cancel:.3e}x |partial|) "
-          f"({'ok' if ok_t else 'FAIL'}); dq {gk[:4].tolist()} vs plain {gp[:4].tolist()}, "
-          f"dT {gk[4:].tolist()} vs plain {gp[4:].tolist()}; max abs err {err:.3e} "
-          f"({'ok' if ok else 'FAIL'}); {kept} boxes kept, {walked} (warp, pair)s walked; "
-          f"kernel {tk:.4f} ms, plain {tp:.1f} ms, bound {b:.4f} ms ({by})", flush=True)
-    if not (ok_t and ok):
-        fail("kernel 3 disagrees with its plain version")
-    rows.append(dict(name="composite_pose_bwd", route="cuda",
-                     source="mm3dgs_slam_torch/csrc/composite_pose_bwd.cu",
-                     replaces="mm3dgs_slam_tpu/ops/pallas_composite.py:858",
-                     max_abs_err=max(err_t, err), ms=tk, plain_ms=tp, bound_ms=b,
-                     bound_by=by, library_ms=None))
-    return rows
+    pose = pose1.clone().requires_grad_(True)
+    acc2, tfin2 = composite_packed(project_for_pose(g, pose, rs).packed, bins, rs.cam, nc)
+    (g_path,) = torch.autograd.grad((acc2 * dacc).sum() + (tfin2 * dtfin).sum(), pose)
+    with torch.no_grad():
+        eye = torch.eye(7, device=device)
+        J = torch.stack([torch.func.jvp(lambda p: project_for_pose(g, p, rs).packed,
+                                        (pose1,), (eye[j],))[1] for j in range(7)])
+        gargs = (packed, *args, acc, tfin, dacc, dtfin, rs.cam, nc)
+        terms_p = J * plain.composite_bwd_plain(*gargs)
+        g_k = (J * kernels.composite_bwd(*gargs)).sum((1, 2))
+        g_p, asum = terms_p.sum((1, 2)), terms_p.abs().sum((1, 2))
+    tol = BA_ATOL * asum + POSE_TOL["rtol"] * g_p.abs()
+    rel = float(((g_k - g_p).abs() / asum).max())
+    ok = bool(((g_k - g_p).abs() <= tol).all() and ((g_path - g_p).abs() <= tol).all())
+    print(f"[{tag}] BA pose gradient through kernel 2 nc={nc}: path {g_path.tolist()}, chain "
+          f"{g_k.tolist()} vs plain {g_p.tolist()}; max abs err {float((g_k - g_p).abs().max()):.3e}"
+          f" (path {float((g_path - g_p).abs().max()):.3e}), at most {rel:.3e} of sum |term| "
+          f"(sum |term| up to {float((asum / g_p.abs().clamp_min(1e-30)).max()):.3e}x |gradient|)"
+          f" ({'ok' if ok else 'FAIL'})", flush=True)
+    if not ok:
+        fail("the BA pose gradient through kernel 2 disagrees with the plain chain")
+    return rel
 
 
 RESULT_KEYS = {"pose_est", "pose_gt", "keyframes", "ate_rmse", "psnr_list", "ssim_list",
@@ -376,11 +445,14 @@ def drive(run, kernels, tag, cfg, ate_max, psnr_min):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    by_nc = kernels.launch_counts_by_nc()
     if slam.failed is not None:
         fail(f"{tag}: the SLAM run failed: {slam.failed!r}")
     r = np.load(Path(cfg["outputdir"]) / "results.npz", allow_pickle=True)
     if set(r.files) != RESULT_KEYS:
         fail(f"{tag}: results.npz keys {sorted(r.files)} != {sorted(RESULT_KEYS)}")
+    if not (len(r["lpips_proxy_list"]) and np.isfinite(r["lpips_proxy_list"]).all()):
+        fail(f"{tag}: lpips_proxy_list {r['lpips_proxy_list']} is not all finite")
     ate, psnr = float(r["ate_rmse"]), float(np.mean(r["psnr_list"]))
     frames_s = len(slam.frame_seconds) / sum(slam.frame_seconds)
     print(f"[{tag}] {cfg['scene']} {cfg['desired_width']}x{cfg['desired_height']}, "
@@ -390,13 +462,113 @@ def drive(run, kernels, tag, cfg, ate_max, psnr_min):
           f"{float(r['avg_mapping_it_time']):.3f} ms/mapping iteration, "
           f"{frames_s:.4f} frames/s (frame loop), run {wall:.1f} s, "
           f"{slam.gaussians.n} gaussians, max memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}",
-          flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, by nc "
+          f"{by_nc}; LPIPS proxy {np.mean(r['lpips_proxy_list']):.6f}", flush=True)
     if not all(v > 0 for v in launches.values()):
         fail(f"{tag}: a kernel of the path was never launched: {launches}")
     if not (ate < ate_max and psnr > psnr_min):
         fail(f"{tag}: quality gates: ATE {ate} (< {ate_max}), PSNR {psnr} (> {psnr_min})")
-    return launches, slam
+    return launches, slam, by_nc
+
+
+def count_map_rebins():
+    """Count the mapping loop's rebins (calls of map_opt._map_bins) from
+    here on: returns a one-element list that each call increments."""
+    from mm3dgs_slam_torch.slam import map_opt
+
+    n, inner = [0], map_opt._map_bins
+
+    def counted(*a, **k):
+        n[0] += 1
+        return inner(*a, **k)
+
+    map_opt._map_bins = counted
+    return n
+
+
+def video_frames(path) -> list:
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    shapes = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        shapes.append(frame.shape)
+    cap.release()
+    return shapes
+
+
+def check_splatam(slam, by_nc, cfg):
+    """splatam's launches at its widths, its keyframes and the debug video."""
+    if not (by_nc["composite_pose_bwd"].get(6, 0) > 0 and by_nc["composite_bwd"].get(4, 0) > 0):
+        fail(f"splatam: kernel 3 at nc 6 or kernel 2 at nc 4 never launched: {by_nc}")
+    kfs = [kf.idx for kf in slam.mapper.keyframes]
+    shapes = video_frames(Path(cfg["outputdir"]) / "debug_video.mp4")
+    want = [(2 * cfg["desired_height"], 3 * cfg["desired_width"], 3)] * (slam.n_img - 1)
+    print(f"[splatam] keyframes {kfs}; debug_video.mp4: {len(shapes)} frames of "
+          f"{shapes[0] if shapes else None}", flush=True)
+    if kfs != [0, 1, 3]:
+        fail(f"splatam: keyframes {kfs}, not [0, 1, 3]")
+    if shapes != want:
+        fail(f"splatam: the video holds {len(shapes)} frames {set(shapes)}, not "
+             f"{len(want)} of {want[0]}")
+
+
+def check_ba(slam, rebins, ms_it, main_rebins, main_ms_it):
+    """BA's window poses: finite, and at least one keyframe of an earlier
+    frame than the last moved by BA after its own frame, by less than 0.05 m
+    and 0.05 rad."""
+    poses = np.stack([kf.pose for kf in slam.mapper.keyframes])
+    if not (np.isfinite(poses).all() and np.isfinite(slam.estimate_pose_list).all()):
+        fail("BA: a window pose is not finite")
+    moved = []
+    for kf in (k for k in slam.mapper.keyframes if k.idx < slam.n_img - 1):
+        own = slam.estimate_pose_list[kf.idx]     # the pose after its own frame
+        q1, q2 = own[:4] / np.linalg.norm(own[:4]), kf.pose[:4] / np.linalg.norm(kf.pose[:4])
+        angle = 2 * np.arccos(min(abs(float(q1 @ q2)), 1.0))
+        moved.append((kf.idx, float(np.linalg.norm(kf.pose[4:] - own[4:])), angle))
+    print(f"[ba] keyframe moves by BA after their own frame (idx, |dT| m, angle rad): "
+          f"{[(i, round(t, 7), round(a, 7)) for i, t, a in moved]}; mapping rebins "
+          f"{rebins} at {ms_it:.3f} ms/mapping iteration (synthetic_tum without BA: "
+          f"{main_rebins} at {main_ms_it:.3f})", flush=True)
+    if not any((t > 0 or a > 0) and t < 0.05 and a < 0.05 for _, t, a in moved):
+        fail(f"BA: no earlier keyframe moved by a nonzero amount below 0.05: {moved}")
+
+
+def check_resume(cfg, slam0):
+    """The port resumed from `save_iterations` [3] of the BA run: restored
+    poses equal to the saved ones, the keyframe count, a finite
+    evaluation; then LPIPS-proxy on the card against the CPU on one frame."""
+    import torch
+
+    from mm3dgs_slam_torch.eval.lpips import lpips_proxy
+    from mm3dgs_slam_torch.slam.slam import SLAM
+
+    r = np.load(Path(cfg["outputdir"]) / "results.npz", allow_pickle=True)
+    slam = SLAM(dict(cfg, iteration=3), device="cuda")
+    n = len(r["pose_est"])
+    psnrs, ssims, _, proxies = slam.evaluate_images(n)
+    print(f"[resume] {slam.gaussians.n} gaussians from iteration_3, {len(slam.mapper.keyframes)} "
+          f"keyframes (saved {len(r['keyframes'])}); re-evaluated PSNR {np.mean(psnrs):.3f} dB, "
+          f"SSIM {np.mean(ssims):.4f}, LPIPS proxy {np.mean(proxies):.6f}", flush=True)
+    if not np.array_equal(slam.estimate_pose_list[:n], r["pose_est"]):
+        fail("resume: the restored poses differ from the saved ones")
+    if not len(slam.mapper.keyframes) == len(r["keyframes"]) == len(slam0.mapper.keyframes):
+        fail("resume: the keyframe count differs from the saved one")
+    if not (slam.gaussians.n > 0 and np.isfinite(psnrs + ssims + proxies).all()):
+        fail("resume: the re-evaluation is not finite")
+    img, _ = slam.render_eval(n - 1)
+    color = slam.dataset[n - 1][0]
+    gt = torch.as_tensor(np.transpose(color, (2, 0, 1)) / 255.0, dtype=torch.float32,
+                         device=img.device)
+    on_card, on_cpu = lpips_proxy(img, gt), lpips_proxy(img.cpu(), gt.cpu())
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    print(f"[lpips] proxy of frame {n - 1} at {img.shape[2]}x{img.shape[1]}: card {on_card!r}, "
+          f"CPU {on_cpu!r}, relative difference {rel:.3e}", flush=True)
+    if not rel <= 1e-4:
+        fail("lpips: the proxy on the card differs from the CPU's by more than 1e-4")
 
 
 def imu_seed_errors(slam, tag, camera_centers):
@@ -421,37 +593,46 @@ def imu_seed_errors(slam, tag, camera_centers):
 
 
 def prior_pull(slam, camera_centers):
-    """The IMU prior's own effect, apart from the run's chaos: the run's last
-    frame tracked again on its final map from its seed, without and with the
-    prior; with it the prior's weighted value at the tracked pose (the
-    translation and rotation distance from the seed it penalizes) must end
-    lower."""
+    """The IMU prior's own effect, apart from the run's chaos: every tracked
+    frame tracked again on the final map from its seed, without and with the
+    prior; on the frame that ends farthest from its seed without it (by the
+    prior's weighted value), the value must end lower with it.
+    The rotation term is flat within 9.8e-4 rad of the seed (rel_pose_loss's
+    clamp at 1 - 1e-7, which float32 rounds to 1 - 1.2e-7), so a frame that
+    tracks to within that of its seed gives the prior little to pull and its
+    two values differ by Adam's last steps, either way."""
     import torch
 
     from mm3dgs_slam_torch.ops.losses import rel_pose_loss
     from mm3dgs_slam_torch.slam.tracker import track_frame
 
-    idx = slam.n_img - 1
-    color, depth, _, _, _ = slam.dataset[idx]
-    color = torch.as_tensor(np.transpose(color, (2, 0, 1)) / 255.0, dtype=torch.float32,
-                            device=slam.device)
-    depth = torch.as_tensor(depth[..., 0], device=slam.device)
-    seed = torch.as_tensor(slam.seed_pose_list[idx], device=slam.device)
     ts0 = slam.track_settings
-    out = []
-    for on in (False, True):
+
+    def retrack(idx, on):
+        color, depth, _, _, _ = slam.dataset[idx]
+        color = torch.as_tensor(np.transpose(color, (2, 0, 1)) / 255.0, dtype=torch.float32,
+                                device=slam.device)
+        depth = torch.as_tensor(depth[..., 0], device=slam.device)
+        seed = torch.as_tensor(slam.seed_pose_list[idx], device=slam.device)
         pose, _ = track_frame(slam.gaussians.activated(), seed, color, depth,
                               torch.zeros_like(depth), ts0._replace(use_imu_loss=on))
         if not torch.isfinite(pose).all():
             fail(f"utmm+prior: frame {idx} tracked to a non-finite pose (prior {on})")
         t_err, q_err = (float(v) for v in rel_pose_loss(pose, seed))
         c = camera_centers(np.stack([pose.cpu().numpy(), seed.cpu().numpy()]))[:, 4:]
-        out.append((ts0.imu_T_weight * t_err + ts0.imu_q_weight * q_err, t_err ** 0.5, q_err,
-                    float(np.linalg.norm(c[0] - c[1]))))
-    print(f"[utmm+prior] frame {idx} tracked again on the final map from its seed, without / "
-          f"with the prior: weighted prior {out[0][0]:.3e} / {out[1][0]:.3e}; |dT| "
-          f"{out[0][1]:.5f} / {out[1][1]:.5f}, angle {out[0][2]:.5f} / {out[1][2]:.5f} rad, "
-          f"camera centre {out[0][3]:.5f} / {out[1][3]:.5f} m from the seed's", flush=True)
+        return (ts0.imu_T_weight * t_err + ts0.imu_q_weight * q_err, t_err ** 0.5, q_err,
+                float(np.linalg.norm(c[0] - c[1])))
+
+    both = {idx: (retrack(idx, False), retrack(idx, True)) for idx in range(1, slam.n_img)}
+    for i, (off, on) in both.items():
+        print(f"[utmm+prior] frame {i} tracked again on the final map from its seed, without / "
+              f"with the prior: weighted prior {off[0]:.3e} / {on[0]:.3e}; |dT| "
+              f"{off[1]:.5f} / {on[1]:.5f}, angle {off[2]:.5f} / {on[2]:.5f} rad, "
+              f"camera centre {off[3]:.5f} / {on[3]:.5f} m from the seed's", flush=True)
+    idx = max(both, key=lambda i: both[i][0][0])
+    out = both[idx]
+    print(f"[utmm+prior] gated on frame {idx}, the farthest from its seed without the prior",
+          flush=True)
     if not out[1][0] < out[0][0]:
         fail("utmm+prior: the IMU prior did not pull the tracked pose towards its seed")
 
@@ -502,7 +683,10 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions
     f0, f1, cam = synthetic_frames(cfg, device)
-    rows = check_kernels(check_scene((f0, f1), RenderSettings(cam=cam), device))
+    scene = check_scene((f0, f1), RenderSettings(cam=cam), device)
+    rows = check_kernels(scene)
+    ba_rel = check_ba_chain(scene)
+    del scene
 
     with tempfile.TemporaryDirectory() as tmp:
         # the UT-MM sequence of phases 3b and 5, at UTMM.yml's native size
@@ -522,7 +706,7 @@ def main() -> int:
         u0, u1, ucam = utmm_frames(ucfg, ucfg["inputdir"])
         urs = RenderSettings(cam=ucam, force_isotropic=ucfg["pipeline"]["force_isotropic"])
         urows = check_kernels(check_scene((u0, u1), urs, device), fwd_ncs=(4, 5), bwd_nc=4,
-                              pose_nc=5, tag="check 640x330")
+                              pose_ncs=(5,), tag="check 640x330")
         for k, u in zip(rows, urows):
             k["utmm_640x330"] = {key: u[key] for key in ("max_abs_err", "ms", "plain_ms",
                                                           "bound_ms", "bound_by")}
@@ -531,36 +715,66 @@ def main() -> int:
 
         # phase 4: the main path, the CLI's code path
         cfg["outputdir"] = str(Path(tmp) / "out_main")
-        launches, _ = drive(run, kernels, "main", cfg, ate_max=0.03, psnr_min=17.0)
+        rebins = count_map_rebins()
+        launches, _, _ = drive(run, kernels, "main", cfg, ate_max=0.03, psnr_min=17.0)
+        main_rebins = rebins[0]
+        main_ms_it = float(np.load(Path(cfg["outputdir"]) / "results.npz")["avg_mapping_it_time"])
 
         # phase 5: the UT-MM path (IMU seed, Pearson terms, 640x330)
-        utmm, slam = drive(run, kernels, "utmm", ucfg, ate_max=0.03, psnr_min=17.0)
+        utmm, slam, _ = drive(run, kernels, "utmm", ucfg, ate_max=0.03, psnr_min=17.0)
         imu_seed_errors(slam, "utmm", camera_centers)
 
         # phase 5b: the same sequence with the IMU pose prior on, at
         # tests/test_e2e_imu.py's weights (UTMM.yml leaves it off)
         pcfg = copy.deepcopy(ucfg)
         pcfg["outputdir"] = str(Path(tmp) / "out_utmm_prior")
+        pcfg["early_stop_idx"] = 2 * SHORT_FRAMES   # stride 2
         pcfg["tracking"].update(use_imu_loss=True, **IMU_PRIOR_WEIGHTS)
-        prior, pslam = drive(run, kernels, "utmm+prior", pcfg, ate_max=0.03, psnr_min=17.0)
+        prior, pslam, _ = drive(run, kernels, "utmm+prior", pcfg, ate_max=0.03, psnr_min=17.0)
         imu_seed_errors(pslam, "utmm+prior", camera_centers)
         prior_pull(pslam, camera_centers)
 
         # phase 6: the monocular path
         mcfg = load_config(str(ROOT / "configs" / "synthetic_tum.yml"))
-        mcfg["synthetic"]["n_frames"] = N_FRAMES
+        mcfg["synthetic"]["n_frames"] = SHORT_FRAMES
         mcfg.update(use_gt_depth=False, dpt_model="synthetic_affine",
                     outputdir=str(Path(tmp) / "out_mono"))
         for blk in ("tracking", "mapping"):
             mcfg[blk]["use_depth_estimate_loss"] = True
-        mono, _ = drive(run, kernels, "mono", mcfg, ate_max=0.06, psnr_min=15.0)
+        mono, _, _ = drive(run, kernels, "mono", mcfg, ate_max=0.06, psnr_min=15.0)
 
-    print(f"[launches] per path: synthetic_tum {launches}; utmm {utmm}; utmm+prior {prior}; "
-          f"mono {mono}", flush=True)
+        # phase 7: splatam (tracking at nc 6, mapping at nc 4), with the
+        # debug video on
+        scfg = load_config(str(ROOT / "configs" / "synthetic_tum.yml"))
+        scfg["synthetic"]["n_frames"] = N_FRAMES
+        scfg.update(method="splatam", outputdir=str(Path(tmp) / "out_splatam"))
+        scfg["debug"]["create_video"] = True
+        splatam, sslam, s_by_nc = drive(run, kernels, "splatam", scfg, ate_max=0.03,
+                                        psnr_min=17.0)
+        check_splatam(sslam, s_by_nc, scfg)
+
+        # phase 8: bundle adjustment, a checkpoint at frame 3, then the
+        # port resumed from it
+        bcfg = load_config(str(ROOT / "configs" / "synthetic_tum.yml"))
+        bcfg["synthetic"]["n_frames"] = N_FRAMES
+        bcfg.update(outputdir=str(Path(tmp) / "out_ba"), save_iterations=[3])
+        bcfg["mapping"]["do_BA"] = True
+        rebins[0] = 0
+        ba, bslam, _ = drive(run, kernels, "ba", bcfg, ate_max=0.03, psnr_min=17.0)
+        ba_ms_it = float(np.load(Path(bcfg["outputdir"]) / "results.npz")["avg_mapping_it_time"])
+        check_ba(bslam, rebins[0], ba_ms_it, main_rebins, main_ms_it)
+        check_resume(bcfg, bslam)
+
+    paths = {"synthetic_tum": launches, "utmm": utmm, "utmm_prior": prior, "mono": mono,
+             "splatam": splatam, "ba": ba}
+    print(f"[launches] per path: {paths}; splatam by nc {s_by_nc}", flush=True)
     for k in rows:
         k["launches"] = launches[k["name"]]
-        k["launches_by_path"] = {"synthetic_tum": launches[k["name"]], "utmm": utmm[k["name"]],
-                                 "utmm_prior": prior[k["name"]], "mono": mono[k["name"]]}
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+        if k["name"] == "composite_pose_bwd":
+            k["nc6"]["launches_splatam"] = s_by_nc[k["name"]].get(6, 0)
+        if k["name"] == "composite_bwd":
+            k["ba_pose_grad_err_of_abs_sum"] = ba_rel
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

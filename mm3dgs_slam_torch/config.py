@@ -15,10 +15,8 @@ is an argument of the entry points. `dpt_model` and `dpt_weights` (the
 TinyDPT .npz) choose the monocular-depth estimator when `use_gt_depth` is
 false; `depth_fit` ("ls" | "tum_heuristic") anchors its scale on frame 0.
 
-Config values the port reads but does not run raise NotImplementedError
-when the SLAM is constructed (slam/slam.py `_unported`): `method: splatam`,
-`mapping.do_BA`, checkpoint resume (`iteration`), `debug.create_video`, and
-any dataset but `synthetic` and `utmm` (data/__init__.py).
+A dataset the port has no loader for (any but `synthetic` and `utmm`)
+raises NotImplementedError when the SLAM is constructed (data/__init__.py).
 """
 from __future__ import annotations
 

@@ -110,7 +110,7 @@ def from_numpy_params(d: dict, device=None) -> GaussianMap:
     holding the alive prefix [0, n_alive)."""
     n = int(np.asarray(d["n_alive"]))
     return GaussianMap(*(
-        torch.as_tensor(np.asarray(d[f])[:n], dtype=torch.float32, device=device).contiguous()
+        torch.tensor(np.asarray(d[f])[:n], dtype=torch.float32, device=device)
         for f in PARAM_FIELDS))
 
 
@@ -123,14 +123,19 @@ def init_adam(m: GaussianMap) -> AdamState:
 
 
 def adam_update(m: GaussianMap, grads: GaussianMap, state: AdamState,
-                hyper: MapOptHyper) -> tuple[GaussianMap, AdamState]:
-    """One torch-semantics Adam step over every parameter leaf."""
+                hyper: MapOptHyper, row_mask=None) -> tuple[GaussianMap, AdamState]:
+    """One torch-semantics Adam step over every parameter leaf. `row_mask`
+    [N] bool zeroes the gradients of the rows where it is False (bundle
+    adjustment's masking, mapper.py:931-936); their moments still decay and
+    they still move by momentum, as in the reference."""
     step = state.step + 1
     bc1 = 1.0 - hyper.b1 ** step
     bc2_sqrt = (1.0 - hyper.b2 ** step) ** 0.5
     new_p, new_mu, new_nu = [], [], []
     for f in PARAM_FIELDS:
         g = getattr(grads, f)
+        if row_mask is not None:
+            g = g * row_mask.reshape((-1,) + (1,) * (g.dim() - 1)).to(g.dtype)
         mu = hyper.b1 * getattr(state.mu, f) + (1 - hyper.b1) * g
         nu = hyper.b2 * getattr(state.nu, f) + (1 - hyper.b2) * g * g
         lr = getattr(hyper, "lr_" + f)

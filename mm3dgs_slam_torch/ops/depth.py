@@ -1,9 +1,10 @@
 """Depth utilities (JAX counterpart: ops/depth.py): torch-style median,
-back-projection, the covisibility fraction, and the monocular-depth
-scale/shift fit (`get_scale_shift_ls`). The colormap export
-(`depth_to_rgb_np`) feeds only the debug video, which is not ported."""
+back-projection, the covisibility fraction, the monocular-depth
+scale/shift fit (`get_scale_shift_ls`) and the debug video's colormap
+(`depth_to_rgb_np`)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -60,3 +61,18 @@ def project_points_fraction_inside(pts, valid, w2c, fx, fy, cx, cy,
     inside = (u < width - edge) & (u > edge) & (v < height - edge) & (v > edge) & (z > 0)
     vf = valid.to(torch.float32)
     return torch.sum(inside.to(torch.float32) * vf) / torch.clamp(torch.sum(vf), min=1.0)
+
+
+def depth_to_rgb_np(depth, min_depth=None, max_depth=None):
+    """Depth [H, W] -> viridis RGB [3, H, W] float32 on the host
+    (utils/depth_utils.py:14-34). The 256-entry table is OpenCV's viridis,
+    within 2e-3 of matplotlib's, indexed as matplotlib indexes it."""
+    import cv2
+
+    depth = np.asarray(depth, np.float64)
+    lo = float(depth.min()) if min_depth is None else min_depth
+    hi = float(depth.max()) if max_depth is None else max_depth
+    norm = np.clip((depth - lo) / max(hi - lo, 1e-12), 0, 1)
+    lut = cv2.applyColorMap(np.arange(256, dtype=np.uint8)[:, None], cv2.COLORMAP_VIRIDIS)
+    lut = lut[:, 0, ::-1].astype(np.float32) / 255.0   # BGR -> RGB
+    return np.transpose(lut[np.minimum((norm * 256).astype(np.int64), 255)], (2, 0, 1))

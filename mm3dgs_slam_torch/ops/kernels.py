@@ -8,7 +8,8 @@ and loaded with ctypes. A wrapper takes the kernel's plain PyTorch version
 (`ops/composite.py`) only for tensors on the CPU; for CUDA tensors it checks
 device, dtype, shape and contiguity, allocates the outputs, launches the
 kernel on the current stream, raises if the launch was refused, and adds one
-to that kernel's launch count. There is no fallback.
+to that kernel's launch count, in total and at its width nc. There is no
+fallback.
 
 All three kernels walk a tile with the same per-warp cull
 (`csrc/composite_common.cuh`) and take an optional `work` tensor, int64 [2]
@@ -49,6 +50,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.launches_by_nc: dict[int, int] = {}
         self.ptxas_log = ""
         self._fn = None
 
@@ -76,6 +78,8 @@ class Kernel:
             raise RuntimeError(f"CUDA kernel {self.name} was not launched: "
                                f"cudaError {err}")
         self.launches += 1
+        nc = args[7]   # every entry point takes nc eighth (_COMMON)
+        self.launches_by_nc[nc] = self.launches_by_nc.get(nc, 0) + 1
 
 
 _COMMON = [_P, _I, _P, _P, _P, _I, _I, _I]  # packed, ld, pairs, tiles, nc
@@ -125,10 +129,15 @@ def build_kernels() -> None:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.launches_by_nc = {}
 
 
 def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def launch_counts_by_nc() -> dict[str, dict[int, int]]:
+    return {k.name: dict(sorted(k.launches_by_nc.items())) for k in KERNELS}
 
 
 def _stream() -> int:

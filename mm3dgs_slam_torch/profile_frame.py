@@ -88,7 +88,7 @@ def main(argv=None) -> int:
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             slam.mapper.run_frame(idx, slam.gaussians, slam.adam, pose.cpu().numpy(), gt_color,
-                                  gt_depth, None, color_np, depth_np, None)
+                                  gt_depth, None, color_np, depth_np, None, slam.n_img)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         _report("map", prof, wall, slam.mapper.num_iter, args.top)

@@ -11,7 +11,7 @@ from ..models.gaussians import NewGaussians
 from ..ops.camera import Camera
 from ..ops.depth import backproject_all_pixels, project_points_fraction_inside, torch_style_median
 from ..ops.pose import pose_to_w2c
-from ..ops.render import ActivatedGaussians, RenderSettings, render
+from ..ops.render import ActivatedGaussians, RenderSettings, project_for_pose, render
 from ..ops.sh import rgb_to_sh
 
 
@@ -61,10 +61,12 @@ class NewGaussianStats(NamedTuple):
 
 @torch.no_grad()
 def new_gaussian_candidates(g: ActivatedGaussians, pose, gt_color, depth,
-                            rs: RenderSettings, first_frame: bool) -> NewGaussianStats:
+                            rs: RenderSettings, first_frame: bool,
+                            method: str = "vigs") -> NewGaussianStats:
     """One candidate per pixel and the mask of which to add
-    (initialize_new_gaussians, mapper.py:495-688, vigs branch):
-    non-presence = silhouette < 0.5 OR depth error > 10x its median;
+    (initialize_new_gaussians, mapper.py:495-688):
+    non-presence = silhouette < 0.5 OR depth error > 10x its median (splatam:
+    render depth > depth AND depth error > 50x its median);
     candidates: back-projected center, RGB->SH color, identity rotation,
     logit-0 opacity, isotropic log scale from the pixel footprint."""
     cam = rs.cam
@@ -75,7 +77,12 @@ def new_gaussian_candidates(g: ActivatedGaussians, pose, gt_color, depth,
         out = render(g, pose, rs)
         render_depth, silhouette = out["depth"][0], out["depth"][1]
         depth_error = torch.abs(depth - render_depth) * (depth > 0)
-        non_presence = (silhouette < 0.5) | (depth_error > 10 * torch_style_median(depth_error))
+        med = torch_style_median(depth_error)
+        if method == "splatam":
+            non_presence_depth = (render_depth > depth) & (depth_error > 50 * med)
+        else:
+            non_presence_depth = depth_error > 10 * med
+        non_presence = (silhouette < 0.5) | non_presence_depth
     mask = non_presence.reshape(-1) & (depth.reshape(-1) > 0)
 
     pts = backproject_all_pixels(depth, pose_to_w2c(pose), cam.fx, cam.fy, cam.cx, cam.cy)
@@ -95,3 +102,16 @@ def new_gaussian_candidates(g: ActivatedGaussians, pose, gt_color, depth,
         mask=mask,
     )
     return NewGaussianStats(candidates, non_presence, int(mask.sum()))
+
+
+@torch.no_grad()
+def covisible_gaussian_mask(g: ActivatedGaussians, poses, rs: RenderSettings,
+                            min_kf: int = 2):
+    """[N] bool: the Gaussians visible (projected radius > 0) from at least
+    `min_kf` of the window's poses [K, 7] (mapper.py:690-716). Visibility
+    is taken from the projection alone, as the reference's
+    visibility_filter is: no composite runs."""
+    count = torch.zeros(g.xyz.shape[0], dtype=torch.int32, device=g.xyz.device)
+    for pose in poses:
+        count += (project_for_pose(g, pose, rs).radius > 0).to(torch.int32)
+    return count >= min_kf

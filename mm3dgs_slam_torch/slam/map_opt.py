@@ -4,11 +4,14 @@ slam/map_opt.py:457 `optimize_map`; reference slam/mapper.py:718-950).
 Per iteration: render the scheduled keyframe in tile layout at nc = 3
 (JAX map_opt.py:150-207) -> (1-lambda) L1 + lambda (1 - SSIM) on the
 assembled rgb -> gradients through kernel 2 -> torch-semantics Adam over
-every map leaf. Reproduced semantics, quirks included:
+every map leaf. splatam renders at nc = 4 and adds the masked mean depth
+error to half the image loss. Bundle adjustment (`do_BA`) makes the window's
+poses [K, 7] a gradient leaf too: kernel 2's xy, conic and depth gradients
+reach them through the projection. Reproduced semantics, quirks included:
 
   * bins are rebuilt exactly where the JAX `plan_segments` cuts: prune
     iterations, keyframe switches and every `rebin_every` iterations of a
-    run on one keyframe,
+    run on one keyframe (under BA every iteration: the poses move),
   * max_radii2D and the densification stats update every iteration while
     iteration <= densify_until_iter (mapper.py:887-898); the xy gradient
     reaches them through a zero `screen_offset` added to the projected xy
@@ -16,7 +19,11 @@ every map leaf. Reproduced semantics, quirks included:
   * pruning at i >= densify_from_iter and i % pruning_interval == 0 (and
     i <= densify_until_iter); the reference swaps its torch parameters
     during prune, which orphans that iteration's gradients, so the map
-    Adam step is a no-op on prune iterations (mapper.py:900-909).
+    Adam step is a no-op on prune iterations (mapper.py:900-909); splatam
+    prunes at i in {0, 20} on opacity and world size alone,
+  * under BA the map gradients of the rows outside `ba_mask` are zeroed
+    before the map Adam (their moments still decay), and the pose Adam
+    (`pose_adam`) steps on every iteration, prune iterations included.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 from ..models.gaussians import (AdamState, GaussianMap, MapOptHyper, adam_update,
                                 prune_compact, prune_mask_reference)
 from ..ops.binning import build_bins
-from ..ops.losses import l1_loss, pearson_loss, ssim
+from ..ops.losses import l1_loss, masked_mean, pearson_loss, ssim
 from ..ops.render import (RenderSettings, background, composite_packed, from_tiles,
                           project_for_pose, tile_pixel_valid, to_tiles)
 
@@ -36,6 +43,7 @@ from ..ops.render import (RenderSettings, background, composite_packed, from_til
 class MapOptSettings(NamedTuple):
     rs: RenderSettings
     iters: int
+    method: str = "vigs"
     use_gt_depth: bool = True
     use_depth_estimate_loss: bool = False
     pearson_weight: float = 0.0
@@ -45,6 +53,9 @@ class MapOptSettings(NamedTuple):
     pruning_interval: int = 50
     densify_from_iter: int = 0
     densify_until_iter: int = 50
+    do_BA: bool = False
+    cam_t_lr: float = 0.001
+    cam_q_lr: float = 0.003
     hyper: MapOptHyper | None = None
     rebin_every: int = 1
 
@@ -56,6 +67,8 @@ class MapState(NamedTuple):
     grad_accum: torch.Tensor  # [N] f32 (xyz_gradient_accum)
     denom: torch.Tensor       # [N] f32
     last_loss: float = 0.0
+    ba_mask: torch.Tensor | None = None  # [N] bool, BA: the rows the map Adam moves
+    kf_poses: torch.Tensor | None = None  # [K, 7] the window's poses after the run
 
 
 def map_loss(m: GaussianMap, screen_offset, pose, gt_color, gt_depth, est_depth,
@@ -65,13 +78,19 @@ def map_loss(m: GaussianMap, screen_offset, pose, gt_color, gt_depth, est_depth,
     rs = ms.rs
     proj = project_for_pose(m.activated(), pose, rs)
     packed = torch.cat([proj.packed[:, :2] + screen_offset, proj.packed[:, 2:]], dim=1)
-    nc = 4 if ms.use_depth_estimate_loss else 3
+    splatam = ms.method == "splatam"
+    nc = 4 if (splatam or ms.use_depth_estimate_loss) else 3
     acc, tfin = composite_packed(packed, bins, rs.cam, nc)
     out_t = acc + tfin * background(rs, acc.device)[:nc][None, :, None]
     image = from_tiles(out_t[:, :3], rs.cam)
     lam = ms.lambda_dssim
     loss = (1 - lam) * l1_loss(image, gt_color) + lam * (1.0 - ssim(image, gt_color))
-    if ms.use_depth_estimate_loss:
+    if splatam:
+        depth_t = out_t[:, 3]
+        gt_depth_t = to_tiles(gt_depth, rs.cam)
+        mask = (gt_depth_t > 0) & ~torch.isnan(depth_t) & tile_pixel_valid(rs.cam, acc.device)
+        loss = masked_mean(torch.abs(gt_depth_t - depth_t), mask) + 0.5 * loss
+    elif ms.use_depth_estimate_loss:
         depth_t = out_t[:, 3]
         valid = tile_pixel_valid(rs.cam, acc.device)
         if ms.use_gt_depth:
@@ -91,15 +110,21 @@ def _map_bins(m: GaussianMap, pose, ms: MapOptSettings):
 
 def _grad_and_stats(st: MapState, bins, pose, i, gt_color, gt_depth, est_depth,
                     ms: MapOptSettings):
-    """One iteration's loss, map gradients and densification-stats update."""
+    """One iteration's loss, map gradients, pose gradient (None unless BA)
+    and densification-stats update."""
     leaves = [t.detach().requires_grad_(True) for t in st.m]
     m = GaussianMap(*leaves)
     screen = torch.zeros((m.n, 2), dtype=torch.float32, device=m.xyz.device,
                          requires_grad=True)
+    wrt = leaves + [screen]
+    if ms.do_BA:
+        pose = pose.detach().requires_grad_(True)
+        wrt.append(pose)
     loss, radii, visible = map_loss(m, screen, pose, gt_color, gt_depth, est_depth, bins, ms)
-    grads = torch.autograd.grad(loss, leaves + [screen], allow_unused=True)
-    grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip(leaves + [screen], grads)]
-    gm, g_screen = GaussianMap(*grads[:-1]), grads[-1]
+    grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip(wrt, grads)]
+    gm, g_screen = GaussianMap(*grads[:len(leaves)]), grads[len(leaves)]
+    g_pose = grads[-1] if ms.do_BA else None
     if i <= ms.densify_until_iter:
         max_radii = torch.where(visible, torch.maximum(st.max_radii, radii.to(torch.float32)),
                                 st.max_radii)
@@ -107,10 +132,41 @@ def _grad_and_stats(st: MapState, bins, pose, i, gt_color, gt_depth, est_depth,
         denom = st.denom + visible.to(torch.float32)
     else:
         max_radii, grad_accum, denom = st.max_radii, st.grad_accum, st.denom
-    return loss.detach(), gm, max_radii, grad_accum, denom
+    return loss.detach(), gm, g_pose, max_radii, grad_accum, denom
+
+
+class PoseAdam(NamedTuple):
+    """BA's Adam over the window's poses: one step counter for the frame,
+    moments per slot."""
+
+    poses: torch.Tensor   # [K, 7]
+    m: torch.Tensor       # [K, 7]
+    v: torch.Tensor       # [K, 7]
+    step: int = 0
+
+
+def pose_adam(pa: PoseAdam, k: int, g_pose, ms: MapOptSettings) -> PoseAdam:
+    """One step with slot k's gradient (JAX map_opt.py `_pose_adam`;
+    mapper.py:768-780, 940-942): every slot's moments decay and every slot
+    moves by its momentum; q and T take cam_q_lr and cam_t_lr; eps 1e-15;
+    the bias corrections in float32, as there."""
+    step = pa.step + 1
+    dev = pa.poses.device
+    sf = torch.tensor(float(step), dtype=torch.float32, device=dev)
+    bc1 = 1.0 - torch.tensor(0.9, device=dev) ** sf
+    bc2 = 1.0 - torch.tensor(0.999, device=dev) ** sf
+    gp = torch.zeros_like(pa.poses)
+    gp[k] = g_pose
+    m = 0.9 * pa.m + 0.1 * gp
+    v = 0.999 * pa.v + 0.001 * gp * gp
+    lr = torch.tensor([ms.cam_q_lr] * 4 + [ms.cam_t_lr] * 3, dtype=torch.float32, device=dev)
+    upd = lr * (m / bc1) / (torch.sqrt(v) / torch.sqrt(bc2) + 1e-15)
+    return PoseAdam(pa.poses - upd, m, v, step)
 
 
 def is_prune_iter(i: int, ms: MapOptSettings) -> bool:
+    if ms.method == "splatam":
+        return i <= 20 and i % 20 == 0
     return (i >= ms.densify_from_iter and i % ms.pruning_interval == 0
             and i <= ms.densify_until_iter)
 
@@ -118,9 +174,10 @@ def is_prune_iter(i: int, ms: MapOptSettings) -> bool:
 def plan_segments(schedule, ms: MapOptSettings):
     """("prune"|"opt", keyframe slot, first iteration, length) runs: cut at
     prune iterations, keyframe switches and every `rebin_every` iterations
-    (JAX map_opt.py:433-455). Bins are built once per segment."""
+    (JAX map_opt.py:433-455; under BA every iteration). Bins are built
+    once per segment."""
     sched = np.asarray(schedule)
-    rebin = max(int(ms.rebin_every), 1)
+    rebin = 1 if ms.do_BA else max(int(ms.rebin_every), 1)
     segs, i = [], 0
     while i < len(sched):
         if is_prune_iter(i, ms):
@@ -139,20 +196,27 @@ def plan_segments(schedule, ms: MapOptSettings):
 def optimize_map(st: MapState, kf_colors, kf_depths, kf_ests, kf_poses, schedule,
                  camera_extent: float, ms: MapOptSettings) -> MapState:
     """Run the scheduled iterations. kf_colors [K, 3, H, W], kf_depths and
-    kf_ests [K, H, W], kf_poses [K, 7]; `schedule` [iters] indexes K."""
+    kf_ests [K, H, W], kf_poses [K, 7]; `schedule` [iters] indexes K. The
+    returned state's kf_poses are the window's poses, moved under BA."""
+    pa = PoseAdam(kf_poses, torch.zeros_like(kf_poses), torch.zeros_like(kf_poses))
     for kind, k, base_i, n in plan_segments(schedule, ms):
-        pose = kf_poses[k]
-        bins = _map_bins(st.m, pose, ms)
+        bins = _map_bins(st.m, pa.poses[k], ms)
         for i in range(base_i, base_i + n):
-            loss, gm, max_radii, grad_accum, denom = _grad_and_stats(
-                st, bins, pose, i, kf_colors[k], kf_depths[k], kf_ests[k], ms)
+            loss, gm, g_pose, max_radii, grad_accum, denom = _grad_and_stats(
+                st, bins, pa.poses[k], i, kf_colors[k], kf_depths[k], kf_ests[k], ms)
             if kind == "prune":
+                size = None if ms.method == "splatam" else ms.size_threshold
                 pmask = prune_mask_reference(st.m, camera_extent, ms.min_opacity,
-                                             max_radii, ms.size_threshold)
+                                             max_radii, size)
                 m, adam, idx = prune_compact(st.m, st.adam, ~pmask)
-                st = MapState(m, adam, max_radii[idx], grad_accum[idx], denom[idx], loss)
+                ba_mask = None if st.ba_mask is None else st.ba_mask[idx]
+                st = MapState(m, adam, max_radii[idx], grad_accum[idx], denom[idx], loss,
+                              ba_mask)
             else:
                 with torch.no_grad():
-                    m, adam = adam_update(st.m, gm, st.adam, ms.hyper)
-                st = MapState(m, adam, max_radii, grad_accum, denom, loss)
-    return st
+                    m, adam = adam_update(st.m, gm, st.adam, ms.hyper, row_mask=st.ba_mask)
+                st = MapState(m, adam, max_radii, grad_accum, denom, loss, st.ba_mask)
+            if ms.do_BA:
+                with torch.no_grad():
+                    pa = pose_adam(pa, k, g_pose, ms)
+    return st._replace(kf_poses=pa.poses)

@@ -5,19 +5,24 @@ Construct from a config dict and call `.run()`. Artifacts:
 ``point_cloud/iteration_N/point_cloud.ply`` and ``results.npz`` with the JAX
 package's keys (pose_est, pose_gt, keyframes, ate_rmse, psnr_list,
 ssim_list, lpips_list, lpips_proxy_list, avg_*_time,
-binning_overflow_frames). LPIPS is not ported: its two lists hold NaN.
-Binning is sized exactly, so binning_overflow_frames is always empty.
+binning_overflow_frames), and with `debug.create_video` the 2x3-panel
+``debug_video.mp4``. lpips_list is NaN unless `MM3DGS_LPIPS_WEIGHTS` names
+the pretrained weights; lpips_proxy_list is always finite
+(eval/lpips.py). Binning is sized exactly, so binning_overflow_frames is
+always empty.
 
 Ported paths: the const-velocity and IMU motion models (the IMU seed is
 computed on the host, reproducing the JAX package: frame 1 seeds a zero
 velocity, dt_imu is 1/100, at most `tpu.imu_pad` samples are integrated),
 the IMU pose prior, GT depth or a monocular estimate (`use_gt_depth: false`:
 the estimator runs on the SLAM's device and is rescaled per frame by the LS
-scale/shift fit), and the vigs/mm3dgs method.
-
-Not ported yet (they raise NotImplementedError at construction): the
-splatam method, bundle adjustment (`mapping.do_BA`), checkpoint resume
-(`iteration`) and the debug video (`debug.create_video`).
+scale/shift fit), the vigs/mm3dgs and splatam methods, bundle adjustment
+(`mapping.do_BA`: the window's optimized poses replace the keyframes' and
+the current frame's estimate), and checkpoint resume (`iteration`: the map
+from ``point_cloud/iteration_N``, the poses and keyframes from
+``results.npz`` in the output directory, as either package writes them;
+the run then starts again from frame 0 on that map). A dataset the port has
+no loader for raises NotImplementedError at construction.
 """
 from __future__ import annotations
 
@@ -32,25 +37,16 @@ from ..config import normalize_config, resolve_device
 from ..data import get_dataset_type
 from ..eval.ate import evaluate_ate_rmse
 from ..eval.depth_est import get_dpt
+from ..eval.lpips import lpips as lpips_fn, lpips_proxy
 from ..models import gaussians as G
-from ..models.ply_io import save_ply
+from ..models.ply_io import load_ply, save_ply
 from ..ops.camera import Camera
-from ..ops.depth import get_scale_shift_ls
+from ..ops.depth import depth_to_rgb_np, get_scale_shift_ls
 from ..ops.losses import psnr as psnr_fn, ssim as ssim_fn
 from ..ops.pose import propagate_const_vel, propagate_imu, w2c_to_pose
 from ..ops.render import RenderSettings, render
-from .mapper import Mapper
+from .mapper import KeyFrame, Mapper
 from .tracker import TrackSettings, track_frame
-
-
-def _unported(cfg: dict) -> list[str]:
-    checks = [
-        (cfg["method"].lower() == "splatam", "method: splatam"),
-        (bool(cfg["mapping"]["do_BA"]), "mapping.do_BA"),
-        ("iteration" in cfg, "checkpoint resume (iteration)"),
-        (bool(cfg["debug"]["create_video"]), "debug.create_video"),
-    ]
-    return [name for bad, name in checks if bad]
 
 
 def _pose7(w2c: np.ndarray) -> np.ndarray:
@@ -62,9 +58,6 @@ class SLAM:
         """`device`: "cuda" (default) or "cpu"; `scene`: optional synthetic
         scene arrays (data/synthetic.py) in place of the generated one."""
         cfg = normalize_config(cfg)
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(f"not ported to mm3dgs_slam_torch yet: {missing}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.failed: BaseException | None = None
@@ -100,9 +93,13 @@ class SLAM:
             white_background=cfg["white_background"],
         )
         self.gaussians = G.empty_map(cfg["mapping"]["sh_degree"], self.device)
-        self.adam = G.init_adam(self.gaussians)
         self.estimate_pose_list = np.zeros((self.n_img, 7), np.float32)
         self.gt_pose_list = np.zeros((self.n_img, 7), np.float32)
+        # checkpoint resume (SLAM.py:90-106, mapper.py:65-71)
+        self._resume = "iteration" in cfg
+        if self._resume:
+            self.load_checkpoint(cfg["iteration"])
+        self.adam = G.init_adam(self.gaussians)
         # the motion model's seed of each tracked frame (NaN where untracked)
         self.seed_pose_list = np.full((self.n_img, 7), np.nan, np.float32)
 
@@ -118,14 +115,54 @@ class SLAM:
             position_lr=float(tr["position_lr"]), rotation_lr=float(tr["rotation_lr"]),
             rebin_every=int(cfg["tpu"].get("rebin_every", 1)))
         self.mapper = Mapper(cfg, self.rs, self.device)
+        if self._resume:
+            self._restore_keyframes()
         self.dpt = None
         if not cfg["use_gt_depth"]:
             self.dpt = get_dpt(cfg["dpt_model"], self.device, weights=cfg["dpt_weights"])
+        self.video_writer = None
+        if cfg["debug"]["create_video"]:
+            import cv2
+
+            self.video_writer = cv2.VideoWriter(
+                os.path.join(self.output, "debug_video.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+                cfg["cam"]["fps"], (cfg["desired_width"] * 3, cfg["desired_height"] * 2))
         self.tracking_time_sum = 0.0
         self.tracking_iter_count = 0
         self.rendering_time_sum = 0.0
         self.rendering_iter_count = 0
         self.frame_seconds: list[float] = []  # wall time of each completed frame
+
+    def load_checkpoint(self, iteration: int):
+        """The map of ``point_cloud/iteration_N`` and the poses of
+        ``results.npz`` in the output directory (JAX slam.py:259-286)."""
+        data = load_ply(os.path.join(self.output, "point_cloud", f"iteration_{iteration}",
+                                     "point_cloud.ply"))
+        n = data["xyz"].shape[0]
+        rest = self.gaussians.features_rest.shape[1]
+        fr = data["features_rest"]
+        if fr.shape[1] < rest:
+            fr = np.concatenate([fr, np.zeros((n, rest - fr.shape[1], 3), np.float32)], axis=1)
+        self.gaussians = G.from_numpy_params(dict(data, features_rest=fr, n_alive=n),
+                                             self.device)
+        results = np.load(os.path.join(self.output, "results.npz"), allow_pickle=True)
+        pose_est = results["pose_est"]
+        self.estimate_pose_list[:len(pose_est)] = pose_est
+
+    def _restore_keyframes(self):
+        """The keyframes of ``results.npz`` and their covisibility graph
+        (JAX slam.py:288-302; each keyframe is linked against all but the
+        last, itself included, as there)."""
+        results = np.load(os.path.join(self.output, "results.npz"), allow_pickle=True)
+        as_np = lambda x: None if x is None else np.asarray(x)  # noqa: E731
+        for d in results["keyframes"]:
+            self.mapper.append_keyframe(KeyFrame(
+                idx=int(d["idx"]), gt_color=np.asarray(d["gt_color"]),
+                pose=np.asarray(d["est_pose"]), gt_depth=as_np(d["gt_depth"]),
+                est_depth=as_np(d["est_depth"])))
+        g_act = self.gaussians.activated()
+        for k in range(len(self.mapper.keyframes)):
+            self.mapper.update_covisibility_graph(k, g_act)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -160,8 +197,8 @@ class SLAM:
         frame 0 by `depth_fit` ("ls": LS fit against GT depth; "tum_heuristic":
         png_depth_scale / 10 / (est + 0.001)), later frames by an LS fit
         against the map's render at the tracked pose over the pixels with
-        silhouette > 0.99."""
-        if idx == 0:
+        silhouette > 0.99 (frame 0 too when resuming)."""
+        if idx == 0 and not self._resume:
             mode = self.cfg.get("depth_fit")
             if mode is None:
                 ds = self.cfg["dataset"].lower()
@@ -251,43 +288,60 @@ class SLAM:
                 gt_depth if est_scaled is None else est_scaled)
         self._sync()
         t0 = time.perf_counter()
-        self.gaussians, self.adam = self.mapper.run_frame(
+        self.gaussians, self.adam, self.estimate_pose_list[idx] = self.mapper.run_frame(
             idx, self.gaussians, self.adam, self.estimate_pose_list[idx], gt_color,
-            gt_depth, est_scaled, gt_color_np, gt_depth_np, est_scaled_np)
+            gt_depth, est_scaled, gt_color_np, gt_depth_np, est_scaled_np, self.n_img)
         self._sync()
         if self.cfg["debug"]["get_runtime_stats"]:
             self.mapper.mapping_time_sum += time.perf_counter() - t0
             self.mapper.mapping_iter_count += self.mapper.num_iter
         self.gt_pose_list[idx] = _pose7(gt_w2c)
+        if self.video_writer is not None and idx > 0:
+            self._write_video_frame(idx, gt_color_np, gt_depth_np, est_scaled_np)
 
     @torch.no_grad()
     def render_eval(self, idx: int):
-        """One no-grad eval render, timed into "Average Rendering Time"."""
+        """One no-grad eval or video render (rgb [3, H, W], depth [3, H, W]),
+        timed into "Average Rendering Time"."""
         self._sync()
         t0 = time.perf_counter()
         out = render(self.gaussians.activated(), self._dev(self.estimate_pose_list[idx]), self.rs)
-        img = out["render"]
         self._sync()
         self.rendering_time_sum += time.perf_counter() - t0
         self.rendering_iter_count += 1
-        return img
+        return out["render"], out["depth"]
 
     @torch.no_grad()
     def evaluate_images(self, last_idx: int):
-        """PSNR/SSIM every eval_every frames (SLAM.py:197-231); LPIPS is
-        not ported, its lists hold NaN."""
+        """PSNR, SSIM, LPIPS and the LPIPS proxy every eval_every frames
+        (SLAM.py:197-231), on the SLAM's device."""
         psnrs, ssims, lpipss, proxies = [], [], [], []
         for idx in range(last_idx):
             if idx != 0 and (idx + 1) % self.cfg["eval_every"] != 0:
                 continue
             gt_color_np = self.dataset[idx][0]
             gt = self._dev(np.transpose(gt_color_np, (2, 0, 1)) / 255.0)
-            img = self.render_eval(idx)
+            img, _ = self.render_eval(idx)
             psnrs.append(float(psnr_fn(img, gt)))
             ssims.append(float(ssim_fn(img, gt)))
-            lpipss.append(float("nan"))
-            proxies.append(float("nan"))
+            lpipss.append(lpips_fn(img, gt))
+            proxies.append(lpips_proxy(img, gt))
         return psnrs, ssims, lpipss, proxies
+
+    def _write_video_frame(self, idx, gt_color_np, gt_depth_np, est_depth_np):
+        """rgb | render | |error| over GT depth | render depth | the scaled
+        estimate (GT depth without one), viridis (JAX slam.py:747-765)."""
+        import cv2
+
+        img, depth = self.render_eval(idx)
+        img, depth = img.cpu().numpy(), depth[0].cpu().numpy()
+        row1 = np.concatenate([gt_color_np, img, np.abs(img - gt_color_np)], axis=2)
+        third = gt_depth_np if est_depth_np is None else est_depth_np
+        row2 = np.concatenate([depth_to_rgb_np(gt_depth_np), depth_to_rgb_np(depth),
+                               depth_to_rgb_np(third)], axis=2)
+        frame = np.concatenate([row1, row2], axis=1)   # [3, 2H, 3W]
+        frame = (np.clip(frame, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)
+        self.video_writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
 
     def save_map(self, iteration: int):
         path = os.path.join(self.output, "point_cloud", f"iteration_{iteration}",
@@ -303,6 +357,8 @@ class SLAM:
         est = self.estimate_pose_list[:last_idx]
         gt = self.gt_pose_list[:last_idx]
         results = {"pose_est": est, "pose_gt": gt}
+        if self.video_writer is not None:
+            self.video_writer.release()
         results["keyframes"] = np.array(
             [{"idx": kf.idx, "gt_color": kf.gt_color, "est_pose": kf.pose,
               "gt_depth": kf.gt_depth, "est_depth": kf.est_depth}
@@ -317,7 +373,12 @@ class SLAM:
             if psnrs:
                 print("  PSNR : {:>12.7f}".format(np.mean(psnrs)))
                 print("  SSIM : {:>12.7f}".format(np.mean(ssims)))
-                print("  LPIPS: not ported (NaN)")
+                finite = [x for x in lpipss if np.isfinite(x)]
+                print("  LPIPS: {:>12.7f}".format(np.mean(finite) if finite else float("nan")))
+                if not finite:
+                    # random-VGG perceptual distance, comparable only with itself
+                    print("  LPIPS-proxy (random-VGG, uncalibrated): "
+                          "{:>12.7f}".format(np.mean(proxies)))
         if self.cfg["debug"]["get_runtime_stats"]:
             t_it = self.tracking_time_sum / max(self.tracking_iter_count, 1)
             m_it = self.mapper.mapping_time_sum / max(self.mapper.mapping_iter_count, 1)

@@ -7,6 +7,11 @@ slam/tracker.py:45-266).
     with silhouette > 0.99, at nc = 5 (E[z^2] feeds only splatam), plus the
     optional Pearson depth term and the optional IMU prior (`rel_pose_loss`
     against the seed, its gradient stopped; tracker.py:146-155),
+  * splatam loss at nc = 6: masked SUMS of |depth error| and 0.5 |rgb
+    error| over the pixels with GT depth > 0, silhouette > 0.99 and a
+    finite depth and uncertainty E[z^2] - z^2 (its gradient stopped; it
+    feeds only that mask); no Pearson term and no IMU prior
+    (tracker.py:110-126),
   * gradients from the fused pose backward (kernel 3), the IMU prior's
     added by autograd beside them,
   * separate Adam groups for q and T with torch defaults (tracker.py:233-246),
@@ -14,8 +19,6 @@ slam/tracker.py:45-266).
     stopped,
   * the returned pose is the LAST iteration's, reproducing the reference's
     ineffective best-candidate rebinding (tracker.py:167-181).
-
-The splatam loss is not ported: `method: splatam` raises.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.binning import build_bins
-from ..ops.losses import masked_mean, pearson_loss, rel_pose_loss
+from ..ops.losses import masked_mean, masked_sum, pearson_loss, rel_pose_loss
 from ..ops.render import (ActivatedGaussians, RenderSettings, project_for_pose,
                           render_tiles_pose, tile_pixel_valid, to_tiles)
 
@@ -34,7 +37,7 @@ class TrackSettings(NamedTuple):
 
     rs: RenderSettings
     iters: int
-    method: str = "vigs"            # 'vigs' | 'mm3dgs' (one loss)
+    method: str = "vigs"            # 'vigs' | 'mm3dgs' (one loss) | 'splatam'
     use_gt_depth: bool = True
     use_depth_estimate_loss: bool = False
     pearson_weight: float = 0.0
@@ -51,11 +54,16 @@ class TrackSettings(NamedTuple):
 
 def tracking_loss_tiles(g: ActivatedGaussians, q, T, gt_color_t, gt_depth_t,
                         est_depth_t, valid, initial_pose, ts: TrackSettings, bins):
-    """The vigs/mm3dgs tracking loss in tile layout [n_tiles, C, 256];
-    `initial_pose` [7] is the seed the IMU prior pulls towards."""
-    out = render_tiles_pose(g, q, T, ts.rs, bins, nc=5)
+    """The tracking loss in tile layout [n_tiles, C, 256]; `initial_pose`
+    [7] is the seed the IMU prior pulls towards."""
+    out = render_tiles_pose(g, q, T, ts.rs, bins, nc=6 if ts.method == "splatam" else 5)
     image, depth, silhouette = out[:, :3], out[:, 3], out[:, 4]
     presence = (silhouette > 0.99) & valid
+    if ts.method == "splatam":
+        uncertainty = (out[:, 5] - depth * depth).detach()
+        mask = (gt_depth_t > 0) & ~torch.isnan(depth) & ~torch.isnan(uncertainty) & presence
+        return (masked_sum(torch.abs(gt_depth_t - depth), mask)
+                + 0.5 * masked_sum(torch.abs(gt_color_t - image), mask[:, None]))
     loss = masked_mean(torch.abs(image - gt_color_t), presence[:, None])
     if ts.use_depth_estimate_loss:
         if ts.use_gt_depth:
@@ -76,8 +84,6 @@ def track_frame(g: ActivatedGaussians, pose_init, gt_color, gt_depth, est_depth,
 
     g: the frozen map; pose_init [7]; gt_color [3, H, W]; gt_depth and
     est_depth [H, W] (est_depth may be zeros when unused)."""
-    if ts.method == "splatam":
-        raise NotImplementedError("the splatam tracking loss is not ported to mm3dgs_slam_torch")
     cam = ts.rs.cam
     g = ActivatedGaussians(*(t.detach() for t in g))
     gt_color_t = to_tiles(gt_color, cam)

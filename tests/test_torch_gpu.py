@@ -177,6 +177,35 @@ def test_pose_bwd_kernel_matches_plain(nc):
     torch.testing.assert_close(gk, gp, rtol=5e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("nc", [3, 4])
+def test_ba_pose_gradient_through_kernel_2_matches_plain(nc):
+    """Bundle adjustment's pose gradient: autograd through composite_packed
+    (kernel 2's dpacked) into the pose of the projection, against the same
+    chain through the plain backward; the per-Gaussian terms cancel, so the
+    atol is 1e-5 of their sum |term| (chip_smoke.py's BA_ATOL)."""
+    from mm3dgs_slam_torch.ops.render import composite_packed
+
+    dev = _cuda()
+    g, rs, pose, packed, bins = _scene(dev)
+    acc, tfin = kernels.composite_fwd(packed, *_args(bins, rs.cam), nc)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dacc = torch.randn(acc.shape, generator=gen, device=dev)
+    dtfin = torch.randn(tfin.shape, generator=gen, device=dev)
+    p = pose.clone().requires_grad_(True)
+    acc2, tfin2 = composite_packed(project_for_pose(g, p, rs).packed, bins, rs.cam, nc)
+    (g_k,) = torch.autograd.grad((acc2 * dacc).sum() + (tfin2 * dtfin).sum(), p)
+    d_p = plain.composite_bwd_plain(packed, *_args(bins, rs.cam)[:3], acc, tfin, dacc, dtfin,
+                                    rs.cam, nc)
+    eye = torch.eye(7, device=dev)
+    with torch.no_grad():
+        J = torch.stack([torch.func.jvp(lambda q: project_for_pose(g, q, rs).packed,
+                                        (pose,), (eye[j],))[1] for j in range(7)])
+    terms = J * d_p
+    g_p, asum = terms.sum((1, 2)), terms.abs().sum((1, 2))
+    assert float(asum.min()) > 0
+    assert bool(((g_k - g_p).abs() <= 1e-5 * asum + 5e-4 * g_p.abs()).all()), (g_k, g_p)
+
+
 @pytest.mark.parametrize("kind", ["anisotropic", "saturating"])
 @pytest.mark.parametrize("nc", [5, 6])
 def test_pose_bwd_kernel_matches_plain_hard_scenes(nc, kind):

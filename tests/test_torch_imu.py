@@ -312,15 +312,31 @@ def test_utmm_loader_on_cv2_frames_matches_jax(tmp_path, stride, size):
             np.testing.assert_array_equal(a, b)
 
 
+def _resume(c):
+    """Resume from iteration 3 of a checkpoint written into c's output
+    directory: a one-Gaussian map and results.npz with two poses and no
+    keyframes."""
+    from mm3dgs_slam_torch.models.ply_io import save_ply
+
+    out = c["outputdir"]
+    z = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    save_ply(os.path.join(out, "point_cloud", "iteration_3", "point_cloud.ply"),
+             xyz=z(1, 3), features_dc=z(1, 1, 3), features_rest=z(1, 0, 3), opacity=z(1, 1),
+             scaling=z(1, 3), rotation=np.array([[1, 0, 0, 0]], np.float32), rgb=z(1, 3))
+    np.savez(os.path.join(out, "results"), pose_est=np.tile(IDENTITY, (2, 1)),
+             keyframes=np.array([], dtype=object))
+    c.update(iteration=3)
+
+
 UNPORTED = {
-    "splatam": lambda c: c.update(method="splatam"),
-    "do_BA": lambda c: c["mapping"].update(do_BA=True),
-    "resume": lambda c: c.update(iteration=3),
-    "create_video": lambda c: c["debug"].update(create_video=True),
     "dataset_tum": lambda c: c.update(dataset="tum"),
     "dataset_replica": lambda c: c.update(dataset="replica"),
 }
 PORTED = {
+    "splatam": lambda c: c.update(method="splatam"),
+    "do_BA": lambda c: c["mapping"].update(do_BA=True),
+    "resume": _resume,
+    "create_video": lambda c: c["debug"].update(create_video=True),
     "imu_dynamics": lambda c: c["tracking"].update(dynamics_model="imu"),
     "imu_loss": lambda c: c["tracking"].update(use_imu_loss=True, imu_T_weight=0.5,
                                                imu_q_weight=0.5),
@@ -331,9 +347,10 @@ PORTED = {
 
 @pytest.mark.parametrize("key", sorted(UNPORTED) + sorted(PORTED))
 def test_unported_config_keys_raise(tmp_path, key):
-    """What the port does not run yet raises NotImplementedError when the
-    SLAM is constructed; the keys this slice ported construct (on a UT-MM
-    sequence, which carries the IMU rows the IMU seed needs)."""
+    """What the port does not run yet (the loaders of other datasets) raises
+    NotImplementedError when the SLAM is constructed; the keys the port runs
+    construct (on a UT-MM sequence, which carries the IMU rows the IMU seed
+    needs)."""
     from mm3dgs_slam_torch.slam.slam import SLAM
 
     root = str(tmp_path / "data")
