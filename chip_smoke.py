@@ -18,6 +18,11 @@ Phases (each passes or the script exits non-zero):
      the first frame of the UT-MM sequence of phase 5 seeded one Gaussian per
      pixel and seen from its second frame: kernel 1 at nc 4 and 5, kernel 2
      at nc 4 (mapping with the depth-estimate loss), kernel 3 at nc 5;
+  3c. the same at replica.yml's 600x340 (37.5 x 21.25 tiles: the last tile
+     column 8 pixels wide, the last row 4 high), on the Replica-layout
+     sequence of phase 10: kernel 1 at nc 3, 4 and 5, kernel 2 at nc 4 (the
+     width replica.yml maps at: its mapping.use_depth_estimate_loss is on),
+     kernel 3 at nc 5;
   4. the main path: the CLI's code path (`python -m mm3dgs_slam_torch
      --config configs/synthetic_tum.yml`) at full width with the frame count
      cut to a few, launch counts reset just before and read just after;
@@ -50,13 +55,27 @@ Phases (each passes or the script exits non-zero):
      0.05 m and 0.05 rad), the mapping rebins and ms/iteration beside phase
      4's; then the port resumed from that checkpoint (poses as saved, the
      keyframe count, a finite evaluation) and the LPIPS proxy of one frame
-     on the card against the CPU (relative 1e-4).
+     on the card against the CPU (relative 1e-4);
+  9. TUM: a TUM-layout sequence (rgb/, depth/, rgb.txt, depth.txt,
+     groundtruth.txt) of the synthetic scene written at TUM.yml's native
+     640x480, then the CLI's code path on configs/TUM.yml (monocular, with
+     TinyDPT on assets/tiny_dpt_synthetic.npz in place of MiDaS, crop_edge 8,
+     the tum_heuristic depth anchor, the depth-estimate loss in mapping),
+     3 frames; every kernel launched, ATE < 0.06 m, PSNR > 15 dB;
+ 10. Replica: a Replica-layout sequence (JPEG frames, depth PNGs, traj.txt)
+     written at replica.yml's native 1200x680, then the CLI's code path on
+     configs/replica.yml (600x340, GT depth) with debug.save_keyframes on,
+     5 frames; every kernel launched, ATE < 0.03 m, PSNR > 17 dB;
+ 11. the eval CLIs on phase 10's output: eval_traj's ATE equal to
+     results.npz's (1e-6 m), eval_image's re-render from the saved map on the
+     card within 0.01 dB of results.npz's mean PSNR, and one keyframe PNG per
+     keyframe within 1 level of its GT colour.
 Phase 3 also holds kernel 3 at nc 6 (splatam tracking) and bundle
 adjustment's pose gradient (kernel 2's dpacked chained through the
 projection into the pose) against the plain chain; every path's
 lpips_proxy_list must be finite. Then one JSON line per the kernels
-(launches from phase 4, with each path's counts and the 640x330 and nc 6
-checks beside them), the nvidia-smi line, and the last line
+(launches from phase 4, with each path's counts and the 640x330, 600x340
+and nc 6 checks beside them), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 It needs CUDA and the repository around it; without either it exits non-zero
 and prints no result.
@@ -78,6 +97,8 @@ N_FRAMES = 5             # synthetic_tum frames of phases 4, 7 and 8
 SHORT_FRAMES = 3         # frames read in phases 5b and 6 (the script's time limit)
 UTMM_FRAMES = 10         # written; UTMM.yml's stride 2 reads 5
 UTMM_GAUSSIANS = 20000   # the UT-MM sequence's scene (synthetic_tum.yml's count)
+RECORDED_GAUSSIANS = 20000   # the TUM and Replica sequences' scene (as UT-MM's)
+REPLICA_FRAMES = 5       # written and read in phase 10
 IMU_PRIOR_WEIGHTS = dict(imu_T_weight=0.5, imu_q_weight=0.5)   # tests/test_e2e_imu.py's
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA data sheet (SXM)
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
@@ -183,19 +204,44 @@ def synthetic_frames(cfg, device):
     return ds[0], ds[1], ds.cam
 
 
-def utmm_frames(cfg, root):
-    """Frames 0 and 1 of a UT-MM sequence through the port's loader at the
-    config's size, and the camera from its intrinsics."""
+def dataset_frames(cfg):
+    """Frames 0 and 1 of the config's recorded sequence through the port's
+    loader at the config's size, and the camera from its intrinsics."""
     from mm3dgs_slam_torch.data import get_dataset_type
     from mm3dgs_slam_torch.ops.camera import Camera
 
-    ds = get_dataset_type("utmm")(cfg, root, cfg["scene"], stride=cfg["stride"],
-                                  desired_height=cfg["desired_height"],
-                                  desired_width=cfg["desired_width"])
+    ds = get_dataset_type(cfg["dataset"])(cfg, cfg["inputdir"], cfg["scene"],
+                                          stride=cfg["stride"],
+                                          desired_height=cfg["desired_height"],
+                                          desired_width=cfg["desired_width"])
     f0, f1 = ds[0], ds[1]
     K = f0[2]
     return f0, f1, Camera(cfg["desired_height"], cfg["desired_width"], float(K[0, 0]),
                           float(K[1, 1]), float(K[0, 2]), float(K[1, 2]))
+
+
+def reuse_synthetic_frames():
+    """Phases 4, 7 and 8 read one synthetic sequence (synthetic_tum.yml's
+    scene and camera path), which SyntheticDataset renders with the oracle
+    at ~10 s a frame for 20,000 Gaussians: render each distinct frame once
+    (keyed by the scene's arrays, the pose and the render settings) and hand
+    the later runs the same arrays."""
+    import hashlib
+
+    from mm3dgs_slam_torch.data import synthetic
+
+    inner, memo = synthetic.render_frame, {}
+
+    def render_frame(scene, w2c, rs):
+        h = hashlib.sha1(repr(rs).encode())
+        for a in (*scene, w2c):
+            h.update(np.ascontiguousarray(a.cpu().numpy() if hasattr(a, "cpu") else a).tobytes())
+        key = h.hexdigest()
+        if key not in memo:
+            memo[key] = inner(scene, w2c, rs)
+        return memo[key]
+
+    synthetic.render_frame = render_frame
 
 
 def check_scene(frames, rs, device):
@@ -247,7 +293,8 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
     n_seen = int(torch.unique(bins.pair_gauss).numel())
     print(f"[{tag}] scene: {n} gaussians (frame 0 seeded, one per pixel) at "
           f"{rs.cam.width}x{rs.cam.height}, {n_tiles} tiles ({rs.cam.tiles_x}x"
-          f"{rs.cam.tiles_y}, last row {rs.cam.height - 16 * (rs.cam.tiles_y - 1)} pixels "
+          f"{rs.cam.tiles_y}, last column {rs.cam.width - 16 * (rs.cam.tiles_x - 1)} pixels "
+          f"wide, last row {rs.cam.height - 16 * (rs.cam.tiles_y - 1)} pixels "
           f"high), {n_pairs} pairs of {n_seen} gaussians, max "
           f"{int(bins.tile_count.max())} per tile", flush=True)
     with torch.no_grad():
@@ -571,6 +618,46 @@ def check_resume(cfg, slam0):
         fail("lpips: the proxy on the card differs from the CPU's by more than 1e-4")
 
 
+def check_eval_clis(cfg):
+    """Phase 11, on phase 10's output: eval_traj's ATE against results.npz's,
+    eval_image's re-render on the card against its PSNR, and the keyframe
+    PNGs of debug.save_keyframes against the keyframes' GT colour."""
+    import cv2
+
+    from mm3dgs_slam_torch.scripts.eval_image import evaluate
+    from mm3dgs_slam_torch.scripts.eval_traj import trajectory_ates
+
+    out = Path(cfg["outputdir"])
+    r = np.load(out / "results.npz", allow_pickle=True)
+    t0 = time.perf_counter()
+    t = trajectory_ates(r["pose_est"], r["pose_gt"])
+    d_ate = abs(t["ate_w2c"] - float(r["ate_rmse"]))
+    last = len(r["pose_est"])
+    psnrs, ssims, _, proxies = evaluate(cfg, last, "cuda")
+    d_psnr = abs(float(np.mean(psnrs)) - float(np.mean(r["psnr_list"])))
+    worst, names = 0.0, sorted(p.name for p in (out / "keyframes").glob("*.png"))
+    for kf in r["keyframes"]:
+        png = cv2.imread(str(out / "keyframes" / f"{kf['idx']:05d}.png"))
+        if png is None:
+            fail(f"eval: no keyframe PNG for keyframe {kf['idx']}")
+        want = np.clip(kf["gt_color"], 0, 1).transpose(1, 2, 0) * 255.0
+        worst = max(worst, float(np.abs(png[:, :, ::-1].astype(np.float64) - want).max()))
+    print(f"[eval] eval_traj: ATE {t['ate_w2c']:.9f} m (results.npz {float(r['ate_rmse']):.9f}, "
+          f"|diff| {d_ate:.3e}), camera centres {t['ate_c2w']:.9f} m; eval_image --iteration "
+          f"{last} on the card: PSNR {np.mean(psnrs):.4f} dB (results.npz "
+          f"{np.mean(r['psnr_list']):.4f}, |diff| {d_psnr:.3e}), SSIM {np.mean(ssims):.4f}, LPIPS "
+          f"proxy {np.mean(proxies):.6f}; keyframe PNGs {names} for keyframes "
+          f"{[int(kf['idx']) for kf in r['keyframes']]}, at most {worst:.3f} levels from the GT "
+          f"colour; {time.perf_counter() - t0:.1f} s", flush=True)
+    if not d_ate <= 1e-6:
+        fail(f"eval_traj: ATE {t['ate_w2c']} differs from results.npz's {float(r['ate_rmse'])}")
+    if not d_psnr <= 0.01:
+        fail(f"eval_image: PSNR {np.mean(psnrs)} differs from results.npz's by {d_psnr} dB")
+    if len(names) != len(r["keyframes"]) or not worst <= 1.0:
+        fail(f"save_keyframes: {len(names)} PNGs for {len(r['keyframes'])} keyframes, "
+             f"{worst} levels from the GT colour")
+
+
 def imu_seed_errors(slam, tag, camera_centers):
     """Gate and print an IMU-seeded run's seeds: every frame after frame 0
     seeded, and on frames 2 on (frame 1 seeds a zero velocity) the IMU seed's
@@ -650,6 +737,7 @@ def main() -> int:
             and (ROOT / "configs" / "synthetic_tum.yml").is_file()):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from mm3dgs_slam_torch.__main__ import run
     from mm3dgs_slam_torch.config import load_config
@@ -675,11 +763,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {k.source}: {line.strip()}")
 
+    from mm3dgs_slam_torch.data.synthetic_recorded import (write_synthetic_replica,
+                                                           write_synthetic_tum)
     from mm3dgs_slam_torch.data.synthetic_utmm import write_synthetic_utmm
     from mm3dgs_slam_torch.ops.render import RenderSettings
 
     cfg = load_config(str(ROOT / "configs" / "synthetic_tum.yml"))
     cfg["synthetic"]["n_frames"] = N_FRAMES
+    reuse_synthetic_frames()
 
     # phase 3: kernels against their plain versions
     f0, f1, cam = synthetic_frames(cfg, device)
@@ -703,7 +794,7 @@ def main() -> int:
               f"IMU) in {time.perf_counter() - t0:.1f} s", flush=True)
 
         # phase 3b: the kernels at 640x330, at the widths of the UT-MM path
-        u0, u1, ucam = utmm_frames(ucfg, ucfg["inputdir"])
+        u0, u1, ucam = dataset_frames(ucfg)
         urs = RenderSettings(cam=ucam, force_isotropic=ucfg["pipeline"]["force_isotropic"])
         urows = check_kernels(check_scene((u0, u1), urs, device), fwd_ncs=(4, 5), bwd_nc=4,
                               pose_ncs=(5,), tag="check 640x330")
@@ -712,6 +803,32 @@ def main() -> int:
                                                           "bound_ms", "bound_by")}
             k["utmm_640x330"]["nc"] = {"composite_fwd": 5, "composite_bwd": 4,
                                        "composite_pose_bwd": 5}[k["name"]]
+
+        # the Replica sequence of phases 3c and 10, at replica.yml's native
+        # 1200x680 (the loader reads it at 600x340)
+        rcfg = load_config(str(ROOT / "configs" / "replica.yml"))
+        rcfg.update(inputdir=str(Path(tmp) / "replica"), scene="synthetic",
+                    outputdir=str(Path(tmp) / "out_replica"),
+                    synthetic=dict(n_gaussians=RECORDED_GAUSSIANS, seed=1, orbit_radius=0.12))
+        rcfg["debug"]["save_keyframes"] = True
+        t0 = time.perf_counter()
+        write_synthetic_replica(str(Path(rcfg["inputdir"]) / rcfg["scene"]), rcfg,
+                                REPLICA_FRAMES, device=device)
+        print(f"[replica] wrote {REPLICA_FRAMES} frames at {rcfg['cam']['image_width']}x"
+              f"{rcfg['cam']['image_height']} ({RECORDED_GAUSSIANS} gaussians, JPEG) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # phase 3c: the kernels at 600x340, with its partial tile column
+        t0 = time.perf_counter()
+        r0, r1, rcam = dataset_frames(rcfg)
+        rrows = check_kernels(check_scene((r0, r1), RenderSettings(cam=rcam), device),
+                              fwd_ncs=(3, 4, 5), bwd_nc=4, pose_ncs=(5,), tag="check 600x340")
+        for k, r in zip(rows, rrows):
+            k["replica_600x340"] = {key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                             "bound_ms", "bound_by")}
+            k["replica_600x340"]["nc"] = {"composite_fwd": 5, "composite_bwd": 4,
+                                          "composite_pose_bwd": 5}[k["name"]]
+        print(f"[check 600x340] {time.perf_counter() - t0:.1f} s", flush=True)
 
         # phase 4: the main path, the CLI's code path
         cfg["outputdir"] = str(Path(tmp) / "out_main")
@@ -765,8 +882,33 @@ def main() -> int:
         check_ba(bslam, rebins[0], ba_ms_it, main_rebins, main_ms_it)
         check_resume(bcfg, bslam)
 
+        # phase 9: TUM (monocular, TinyDPT, crop_edge 8, tum_heuristic)
+        tcfg = load_config(str(ROOT / "configs" / "TUM.yml"))
+        tcfg.update(inputdir=str(Path(tmp) / "tum"), scene="synthetic",
+                    outputdir=str(Path(tmp) / "out_tum"), dpt_model="tiny_dpt",
+                    dpt_weights=str(ROOT / "assets" / "tiny_dpt_synthetic.npz"),
+                    synthetic=dict(n_gaussians=RECORDED_GAUSSIANS, seed=1, orbit_radius=0.12))
+        t0 = time.perf_counter()
+        write_synthetic_tum(str(Path(tcfg["inputdir"]) / tcfg["scene"]), tcfg, SHORT_FRAMES,
+                            device=device)
+        print(f"[tum] wrote {SHORT_FRAMES} frames at {tcfg['cam']['image_width']}x"
+              f"{tcfg['cam']['image_height']} ({RECORDED_GAUSSIANS} gaussians) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        tum, _, _ = drive(run, kernels, "tum", tcfg, ate_max=0.06, psnr_min=15.0)
+        print(f"[tum] phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # phase 10: Replica (GT depth, 600x340), keyframe PNGs on
+        t0 = time.perf_counter()
+        replica, rslam, _ = drive(run, kernels, "replica", rcfg, ate_max=0.03, psnr_min=17.0)
+        print(f"[replica] keyframes {[kf.idx for kf in rslam.mapper.keyframes]}; phase 10: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # phase 11: the eval CLIs on phase 10's output
+        check_eval_clis(rcfg)
+
     paths = {"synthetic_tum": launches, "utmm": utmm, "utmm_prior": prior, "mono": mono,
-             "splatam": splatam, "ba": ba}
+             "splatam": splatam, "ba": ba, "tum": tum, "replica": replica}
     print(f"[launches] per path: {paths}; splatam by nc {s_by_nc}", flush=True)
     for k in rows:
         k["launches"] = launches[k["name"]]
@@ -775,6 +917,7 @@ def main() -> int:
             k["nc6"]["launches_splatam"] = s_by_nc[k["name"]].get(6, 0)
         if k["name"] == "composite_bwd":
             k["ba_pose_grad_err_of_abs_sum"] = ba_rel
+    print(f"[time] the script took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

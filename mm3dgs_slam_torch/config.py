@@ -4,10 +4,12 @@ optional ones defaulted, plus the port's device resolution.
 
 Of the `tpu:` block the port honours only the keys that change results:
 `rebin_every`, `map_rebin_every`, `group_mapping_schedule`,
-`max_new_per_frame` and `imu_pad` (the IMU seed integrates at most that many
-samples per frame; the rest are dropped, as in the JAX package). The keys that size or tune TPU buffers (`pair_cap`,
+`max_new_per_frame`, `imu_pad` (the IMU seed integrates at most that many
+samples per frame; the rest are dropped, as in the JAX package) and
+`prefetch` (the frame loop decodes the next frame in a background thread;
+on by default). The keys that size or tune TPU buffers (`pair_cap`,
 `max_per_tile`, `chunk`, `max_tiles_per_gaussian`, `bin_*`, `pl_*`,
-`use_pallas`, `grad_bf16`, `mesh_devices`, `prefetch`, `check_overflow`,
+`use_pallas`, `grad_bf16`, `mesh_devices`, `check_overflow`,
 `track_tiles`, `pose_kernel`, `map_tiles`) are read and ignored: binning is
 sized exactly per frame and the fast paths (tile-layout losses, the fused
 pose backward) are always taken. `cfg["device"]` is ignored too; the device
@@ -15,8 +17,8 @@ is an argument of the entry points. `dpt_model` and `dpt_weights` (the
 TinyDPT .npz) choose the monocular-depth estimator when `use_gt_depth` is
 false; `depth_fit` ("ls" | "tum_heuristic") anchors its scale on frame 0.
 
-A dataset the port has no loader for (any but `synthetic` and `utmm`)
-raises NotImplementedError when the SLAM is constructed (data/__init__.py).
+An unknown dataset name raises ValueError when the SLAM is constructed
+(data/__init__.py).
 """
 from __future__ import annotations
 

@@ -26,6 +26,21 @@ def align_umeyama(model: np.ndarray, data: np.ndarray, known_scale=False):
     return s, R, (mu_m - s * R @ mu_d)[:, None]
 
 
+def align_horn(model: np.ndarray, data: np.ndarray):
+    """Horn's closed-form rigid alignment of model onto data. Inputs
+    [3, n]; returns (rot, trans, per-point translational error)."""
+    model_zc = model - model.mean(1, keepdims=True)
+    data_zc = data - data.mean(1, keepdims=True)
+    U, _, Vh = np.linalg.svd((model_zc @ data_zc.T).T)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vh) < 0:
+        S[2, 2] = -1
+    rot = U @ S @ Vh
+    trans = data.mean(1, keepdims=True) - rot @ model.mean(1, keepdims=True)
+    err = np.sqrt(((rot @ model + trans - data) ** 2).sum(0))
+    return rot, trans, err
+
+
 def _rotate_quats(R: np.ndarray, quats: np.ndarray) -> np.ndarray:
     Rq = P.quat_to_rotmat(torch.as_tensor(quats, dtype=torch.float32)).numpy()
     out = np.einsum("ij,njk->nik", R.astype(np.float32), Rq)
@@ -34,14 +49,19 @@ def _rotate_quats(R: np.ndarray, quats: np.ndarray) -> np.ndarray:
 
 def evaluate_ate_rmse(est_poses, gt_poses, method: str = "umeyama"):
     """Align est to gt and return (aligned_poses, ate_rmse): translation
-    columns are aligned and the RMSE of their residuals reported."""
+    columns are aligned ("umeyama": sim(3), "horn": SE(3); any other method
+    leaves them unaligned) and the RMSE of their residuals reported."""
     est_poses = np.asarray(est_poses, dtype=np.float64)
     gt_poses = np.asarray(gt_poses, dtype=np.float64)
     if len(est_poses) != len(gt_poses):
         raise ValueError("est and gt trajectories differ in length")
     est_traj, gt_traj = est_poses[:, 4:], gt_poses[:, 4:]
     aligned = est_poses.copy()
-    if method.lower() == "umeyama":
+    if method.lower() == "horn":
+        rot, trans, ate = align_horn(est_traj.T, gt_traj.T)
+        aligned[:, :4] = _rotate_quats(rot, est_poses[:, :4])
+        aligned[:, 4:] = (rot @ est_traj.T + trans).T
+    elif method.lower() == "umeyama":
         s, rot, trans = align_umeyama(gt_traj, est_traj)
         aligned[:, :4] = _rotate_quats(rot, est_poses[:, :4])
         aligned[:, 4:] = (s * (rot @ est_traj.T) + trans).T

@@ -10,6 +10,7 @@ then the schedule), so windows and schedules match it.
 """
 from __future__ import annotations
 
+import os
 from collections import defaultdict, deque
 from dataclasses import dataclass
 from typing import List, Optional
@@ -131,7 +132,19 @@ class Mapper:
         self.append_keyframe(kf)
         if idx > 0:
             self.update_covisibility_graph(len(self.keyframes) - 1, g_act)
+        if self.cfg["debug"]["save_keyframes"]:
+            self.save_keyframe_png(kf)
         return kf
+
+    def save_keyframe_png(self, kf: KeyFrame):
+        """The keyframe's GT colour as ``<outputdir>/keyframes/{idx:05d}.png``
+        (JAX mapper.py:251-263; reference mapper.py:991-1000)."""
+        import cv2
+
+        path = os.path.join(self.cfg["outputdir"], "keyframes")
+        os.makedirs(path, exist_ok=True)
+        img = (np.clip(kf.gt_color, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)
+        cv2.imwrite(os.path.join(path, f"{kf.idx:05d}.png"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
 
     def append_keyframe(self, kf: KeyFrame):
         """Keep a keyframe and its images on the device."""

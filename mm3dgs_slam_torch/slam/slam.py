@@ -21,8 +21,9 @@ scale/shift fit), the vigs/mm3dgs and splatam methods, bundle adjustment
 the current frame's estimate), and checkpoint resume (`iteration`: the map
 from ``point_cloud/iteration_N``, the poses and keyframes from
 ``results.npz`` in the output directory, as either package writes them;
-the run then starts again from frame 0 on that map). A dataset the port has
-no loader for raises NotImplementedError at construction.
+the run then starts again from frame 0 on that map). The frame loop reads
+its frames through a one-frame-ahead prefetch thread (`tpu.prefetch`, on by
+default, data/prefetch.py); everything else reads the dataset directly.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 
 from ..config import normalize_config, resolve_device
 from ..data import get_dataset_type
+from ..data.prefetch import Prefetcher
 from ..eval.ate import evaluate_ate_rmse
 from ..eval.depth_est import get_dpt
 from ..eval.lpips import lpips as lpips_fn, lpips_proxy
@@ -69,6 +71,7 @@ class SLAM:
             stride=cfg["stride"], desired_height=cfg["desired_height"],
             desired_width=cfg["desired_width"], relative_pose=True, **extra)
         self.n_img = len(self.dataset)
+        self._frames = Prefetcher(self.dataset, enabled=bool(cfg["tpu"].get("prefetch", True)))
         _, _, intrinsics, _, _ = self.dataset[0]
         cam_cfg = cfg["cam"]
         cam_cfg["cx"], cam_cfg["cy"] = float(intrinsics[0, 2]), float(intrinsics[1, 2])
@@ -246,11 +249,12 @@ class SLAM:
             self.failed = e
             print("\nSLAM failed. Saving map and results.\n")
         finally:
+            self._frames.close()
             self.save_map(last_idx)
             self.save_results(last_idx)
 
     def _step(self, idx: int):
-        gt_color_np, gt_depth_np, _, gt_c2w, imu_meas = self.dataset[idx]
+        gt_color_np, gt_depth_np, _, gt_c2w, imu_meas = self._frames[idx]
         gt_depth_np = gt_depth_np[..., 0]
         gt_w2c = np.linalg.inv(gt_c2w)
         gt_color_np = np.transpose(gt_color_np, (2, 0, 1)) / 255.0

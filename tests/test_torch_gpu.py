@@ -252,3 +252,33 @@ def test_kernels_on_partial_tiles(hw):
     torch.testing.assert_close(torch.cat(pose_grads_from_partials(psum_k, pose[:4])),
                                torch.cat(pose_grads_from_partials(psum_p, pose[:4])),
                                rtol=5e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("hw", [(340, 600), (32, 600)])
+def test_kernels_on_a_partial_tile_column(hw):
+    """replica.yml's 600x340 (37.5 x 21.25 tiles: the last tile column 8
+    pixels wide, the last row 4 high) and a 2-tile-high strip of it: kernel 1
+    at nc 3 and 5, kernel 2 at nc 3 and 4 and kernel 3 at nc 5 against their
+    plain versions, with pairs in the partial column, and kernel 1's count of
+    kept (tile, pair, warp box)s equal to the plain warp_pairs."""
+    dev = _cuda()
+    h, w = hw
+    g, rs, pose, packed, bins = _scene(dev, n=6000 * h // 340, h=h, w=w, f=300.0)
+    cam = rs.cam
+    assert w % 16 == 8 and cam.tiles_x * 16 > w
+    last_col = torch.arange(cam.n_tiles, device=dev) % cam.tiles_x == cam.tiles_x - 1
+    assert int(bins.tile_count[last_col].sum()) > 0
+    for nc in (3, 5):
+        _fwd_matches_plain(packed, bins, cam, nc)
+    for nc in (3, 4):
+        _bwd_matches_plain(packed, bins, cam, nc, dev)
+    ext = conic_pose_jacobian_rows(means_cam_soa(g.xyz, pose), g.scales, g.rotations, g.xyz, cam)
+    packed32 = torch.cat([packed, ext], 1).contiguous()
+    psum_k, psum_p = _pose_bwd_matches_plain(packed32, bins, cam, 5, dev)
+    torch.testing.assert_close(torch.cat(pose_grads_from_partials(psum_k, pose[:4])),
+                               torch.cat(pose_grads_from_partials(psum_p, pose[:4])),
+                               rtol=5e-4, atol=1e-4)
+    _, _, want = plain.composite_fwd_plain(packed, *_args(bins, cam), 3, count_work=True)
+    work = torch.zeros(2, dtype=torch.int64, device=dev)
+    kernels.composite_fwd(packed, *_args(bins, cam), 3, work=work)
+    assert int(work[0]) == want["warp_pairs"]

@@ -328,11 +328,29 @@ def _resume(c):
     c.update(iteration=3)
 
 
+def _recorded(layout):
+    """Point c at a 2-frame sequence of the recorded layout `layout` (tum or
+    replica), written beside the UT-MM one at the same 40x60."""
+    def apply(c):
+        from mm3dgs_slam_torch.data.synthetic_recorded import (write_synthetic_replica,
+                                                               write_synthetic_tum)
+
+        c.update(dataset=layout, scene=f"seq_{layout}",
+                 synthetic={"n_gaussians": 50, "seed": 0, "orbit_radius": 0.05})
+        writer = write_synthetic_tum if layout == "tum" else write_synthetic_replica
+        writer(os.path.join(c["inputdir"], c["scene"]), c, 2)
+    return apply
+
+
+# What the port does not run raises when the SLAM is constructed: since the
+# recorded-dataset loaders were ported, only a dataset name that no package
+# knows (ValueError, as in the JAX package).
 UNPORTED = {
-    "dataset_tum": lambda c: c.update(dataset="tum"),
-    "dataset_replica": lambda c: c.update(dataset="replica"),
+    "unknown_dataset": lambda c: c.update(dataset="nope"),
 }
 PORTED = {
+    "dataset_tum": _recorded("tum"),
+    "dataset_replica": _recorded("replica"),
     "splatam": lambda c: c.update(method="splatam"),
     "do_BA": lambda c: c["mapping"].update(do_BA=True),
     "resume": _resume,
@@ -347,10 +365,10 @@ PORTED = {
 
 @pytest.mark.parametrize("key", sorted(UNPORTED) + sorted(PORTED))
 def test_unported_config_keys_raise(tmp_path, key):
-    """What the port does not run yet (the loaders of other datasets) raises
-    NotImplementedError when the SLAM is constructed; the keys the port runs
+    """What the port does not run raises when the SLAM is constructed (an
+    unknown dataset name: ValueError); the keys and datasets the port runs
     construct (on a UT-MM sequence, which carries the IMU rows the IMU seed
-    needs)."""
+    needs, or on a 2-frame TUM or Replica sequence)."""
     from mm3dgs_slam_torch.slam.slam import SLAM
 
     root = str(tmp_path / "data")
@@ -359,11 +377,12 @@ def test_unported_config_keys_raise(tmp_path, key):
     cfg["tracking"].update(dynamics_model="const_velocity", use_imu_loss=False)
     (UNPORTED.get(key) or PORTED[key])(cfg)
     if key in UNPORTED:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="Unknown dataset"):
             SLAM(cfg, device="cpu")
     else:
         slam = SLAM(cfg, device="cpu")
         assert slam.n_img == 2
+        assert type(slam.dataset).__name__.lower().startswith(cfg["dataset"])
 
 
 @pytest.mark.slow
