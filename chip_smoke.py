@@ -7,8 +7,8 @@ Phases (each passes or the script exits non-zero):
   1. device: the card's name and count, and nvidia-smi's name/power limit;
   2. build: the three CUDA kernels from the sources in this checkout;
   3. kernels against their plain PyTorch versions at 640x480, on a map seeded
-     from the first synthetic_tum frame (one Gaussian per pixel) seen from
-     the second frame's pose: kernel 1 at nc 3/5/6 on black and white
+     from phase 4's first frame (synthetic_tum on the JAX package's scene,
+     one Gaussian per pixel) seen from its second frame's pose: kernel 1 at nc 3/5/6 on black and white
      backgrounds, kernel 2's dpacked, kernel 3's per-tile partials, dq and dT;
      each kernel's count of (tile, pair, warp box)s its per-warp cull keeps
      against the plain count; times from CUDA events, bounds from the walk's
@@ -23,10 +23,15 @@ Phases (each passes or the script exits non-zero):
      sequence of phase 10: kernel 1 at nc 3, 4 and 5, kernel 2 at nc 4 (the
      width replica.yml maps at: its mapping.use_depth_estimate_loss is on),
      kernel 3 at nc 5;
-  4. the main path: the CLI's code path (`python -m mm3dgs_slam_torch
-     --config configs/synthetic_tum.yml`) at full width with the frame count
-     cut to a few, launch counts reset just before and read just after;
-     results.npz keys, every kernel launched, ATE < 0.03 m, PSNR > 17 dB;
+  4. the main path: the port's golden runner's config and run (`python -m
+     mm3dgs_slam_torch.scripts.run_golden --scene
+     mm3dgs_slam_torch/assets/jax_scene_synthetic_tum.npz --decomp`, the
+     CLI's `run`) on configs/synthetic_tum.yml and the JAX package's own
+     scene of it, at full width with the frame count cut to a few, launch
+     counts reset just before and read just after; results.npz keys (with
+     the frame decomposition's), every kernel launched, ATE < 0.03 m, PSNR >
+     17 dB, and the per-frame wall decomposition (its table printed, each
+     frame's phases within its wall time);
   5. the UT-MM path: a UT-MM-format sequence of 10 frames written at
      UTMM.yml's native 1280x660 from the synthetic scene (frames by the
      oracle, groundtruth in the robot frame, tf.txt, a 100 Hz IMU stream from
@@ -45,11 +50,11 @@ Phases (each passes or the script exits non-zero):
      use_gt_depth false, the synthetic_affine estimator and the
      depth-estimate loss on in tracking and mapping; every kernel launched,
      ATE < 0.06 m, PSNR > 15 dB (tests/test_e2e_mono.py's gates);
-  7. splatam: configs/synthetic_tum.yml (5 frames) with method splatam and
+  7. splatam: configs/synthetic_tum.yml (5 frames, phase 4's scene) with method splatam and
      debug.create_video on; kernel 3 launched at nc 6 and kernel 2 at nc 4,
      the keyframes {0, 1, 3}, ATE < 0.03 m, PSNR > 17 dB, and the mp4 read
      back with cv2: one 2x3-panel frame per tracked frame;
-  8. bundle adjustment: configs/synthetic_tum.yml (5 frames) with
+  8. bundle adjustment: configs/synthetic_tum.yml (5 frames, phase 4's scene) with
      mapping.do_BA and save_iterations [3]; ATE < 0.03 m, PSNR > 17 dB, the
      window poses finite, an earlier keyframe moved by BA (nonzero, below
      0.05 m and 0.05 rad), the mapping rebins and ms/iteration beside phase
@@ -69,7 +74,16 @@ Phases (each passes or the script exits non-zero):
  11. the eval CLIs on phase 10's output: eval_traj's ATE equal to
      results.npz's (1e-6 m), eval_image's re-render from the saved map on the
      card within 0.01 dB of results.npz's mean PSNR, and one keyframe PNG per
-     keyframe within 1 level of its GT colour.
+     keyframe within 1 level of its GT colour;
+ 12. the bench: `python -m mm3dgs_slam_torch.bench` (its kernel check, then
+     5 + 2 reps of 100 tracking and 150 mapping iterations on 131,072
+     Gaussians at 640x480), its JSON line echoed, a positive frames/s, the
+     card's name and power limit in it, every kernel launched in its calls;
+ 13. the tools on phase 4's output: train_tiny_dpt for 50 steps on the card
+     on its frames (the loss falls; the weights load and give a finite
+     depth), a PLY save and load of its map (bit-equal; whether the native
+     codec ran), capture and restore of its map and Adam state (bit-equal),
+     and one offline visualizer view rendered on the card.
 Phase 3 also holds kernel 3 at nc 6 (splatam tracking) and bundle
 adjustment's pose gradient (kernel 2's dpacked chained through the
 projection into the pose) against the plain chain; every path's
@@ -194,13 +208,15 @@ def check_work(name, counter, work, tag="check"):
     return kept, walked
 
 
-def synthetic_frames(cfg, device):
-    """Frames 0 and 1 of the config's synthetic sequence and its camera."""
-    from mm3dgs_slam_torch.data.synthetic import SyntheticDataset
+def synthetic_frames(cfg, device, scene):
+    """Frames 0 and 1 of the config's synthetic sequence rendered from the
+    scene .npz at `scene`, and its camera: the main path's own first two
+    frames (reuse_synthetic_frames hands phase 4 the same renders)."""
+    from mm3dgs_slam_torch.data.synthetic import SyntheticDataset, load_scene
 
-    cfg = dict(cfg, synthetic=dict(cfg["synthetic"], n_frames=2))
     ds = SyntheticDataset(cfg, desired_height=cfg["desired_height"],
-                          desired_width=cfg["desired_width"], device=device)
+                          desired_width=cfg["desired_width"], device=device,
+                          scene=load_scene(scene))
     return ds[0], ds[1], ds.cam
 
 
@@ -479,10 +495,11 @@ RESULT_KEYS = {"pose_est", "pose_gt", "keyframes", "ate_rmse", "psnr_list", "ssi
                "avg_mapping_it_time", "avg_rendering_time", "binning_overflow_frames"}
 
 
-def drive(run, kernels, tag, cfg, ate_max, psnr_min):
+def drive(run, kernels, tag, cfg, ate_max, psnr_min, extra_keys=frozenset()):
     """One path through the CLI's code path: launch counts set to 0 just
-    before and read just after; results.npz keys, every kernel launched and
-    the quality gates. Returns (launch counts, the SLAM)."""
+    before and read just after; results.npz keys (RESULT_KEYS and
+    `extra_keys`), every kernel launched and the quality gates. Returns
+    (launch counts, the SLAM, launch counts by nc)."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -496,8 +513,9 @@ def drive(run, kernels, tag, cfg, ate_max, psnr_min):
     if slam.failed is not None:
         fail(f"{tag}: the SLAM run failed: {slam.failed!r}")
     r = np.load(Path(cfg["outputdir"]) / "results.npz", allow_pickle=True)
-    if set(r.files) != RESULT_KEYS:
-        fail(f"{tag}: results.npz keys {sorted(r.files)} != {sorted(RESULT_KEYS)}")
+    if set(r.files) != RESULT_KEYS | extra_keys:
+        fail(f"{tag}: results.npz keys {sorted(r.files)} != "
+             f"{sorted(RESULT_KEYS | extra_keys)}")
     if not (len(r["lpips_proxy_list"]) and np.isfinite(r["lpips_proxy_list"]).all()):
         fail(f"{tag}: lpips_proxy_list {r['lpips_proxy_list']} is not all finite")
     ate, psnr = float(r["ate_rmse"]), float(np.mean(r["psnr_list"]))
@@ -516,6 +534,117 @@ def drive(run, kernels, tag, cfg, ate_max, psnr_min):
     if not (ate < ate_max and psnr > psnr_min):
         fail(f"{tag}: quality gates: ATE {ate} (< {ate_max}), PSNR {psnr} (> {psnr_min})")
     return launches, slam, by_nc
+
+
+DECOMP_KEYS = frozenset({"frame_decomp", "frame_decomp_phases", "frame_decomp_rows"})
+
+
+def check_decomp(slam, cfg):
+    """Phase 4's frame decomposition: the phases of every frame, each frame's
+    within its wall time; prints the rows' medians per phase."""
+    r = np.load(Path(cfg["outputdir"]) / "results.npz", allow_pickle=True)
+    phases, rows = list(r["frame_decomp_phases"]), r["frame_decomp_rows"]
+    walls = np.asarray(slam.frame_seconds)
+    med = {p: round(float(np.median(rows[1:, j] if len(rows) > 2 else rows[:, j])), 6)
+           for j, p in enumerate(phases)}
+    print(f"[decomp] per-frame phase seconds (median of frames 1-{len(rows) - 1}): {med}; "
+          f"frame walls {np.round(walls, 3).tolist()} s, phases sum "
+          f"{np.round(rows.sum(1), 3).tolist()} s", flush=True)
+    if not ({"data", "track", "map.optimize"} <= set(phases) and rows.shape[0] == slam.n_img
+            and (rows.sum(1) <= walls).all()):
+        fail(f"decomp: phases {phases}, rows {rows.shape}, sums {rows.sum(1)} against the "
+             f"frame walls {walls}")
+
+
+def run_bench():
+    """Phase 12: the bench in its own process; returns its JSON line's dict."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "mm3dgs_slam_torch.bench"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=900)
+    lines = p.stdout.strip().splitlines()
+    if p.returncode != 0 or not lines:
+        fail(f"bench: exit {p.returncode}: {p.stderr[-2000:]}")
+    line = lines[-1]
+    print(f"[bench] {line}", flush=True)
+    out = json.loads(line)
+    d = out["detail"]
+    print(f"[bench] {out['value']} frames/s, {d['track_ms_per_iter']:.3f} ms per tracking and "
+          f"{d['map_ms_per_iter']:.3f} ms per mapping iteration; launches per call "
+          f"{d['launches']}; {time.perf_counter() - t0:.1f} s", flush=True)
+    track, mapping = d["launches"]["track"], d["launches"]["map"]
+    if not (out["value"] > 0 and d["device"] and d["power_limit_w"]
+            and track["composite_fwd"] > 0 and track["composite_pose_bwd"] > 0
+            and mapping["composite_fwd"] > 0 and mapping["composite_bwd"] > 0):
+        fail(f"bench: {line}")
+    return out
+
+
+def check_tools(cfg, slam, scene, tmp, kernels, device="cuda"):
+    """Phase 13, on phase 4's run: train_tiny_dpt on its frames, the PLY
+    codec, capture / restore and one offline visualizer view, on `device`."""
+    import contextlib
+    import io
+    import re
+
+    import cv2
+    import torch
+    import yaml
+
+    from mm3dgs_slam_torch.eval.depth_est import TinyDPT
+    from mm3dgs_slam_torch.models import gaussians as G
+    from mm3dgs_slam_torch.models import ply_io
+    from mm3dgs_slam_torch.scripts import train_tiny_dpt, visualizer
+
+    t0 = time.perf_counter()
+    yml = Path(tmp) / "main.yml"
+    yml.write_text(yaml.safe_dump(cfg))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_tiny_dpt.main(["--config", str(yml), "--out", str(Path(tmp) / "dpt.npz"),
+                             "--steps", "50", "--scene", scene, "--device", device])
+    losses = {int(a): float(b) for a, b in re.findall(r"step (\d+): ssi_loss=([0-9.]+)",
+                                                       out.getvalue())}
+    color = slam.dataset[0][0].transpose(2, 0, 1) / 255.0
+    est = TinyDPT(str(Path(tmp) / "dpt.npz"), device).estimate_depth(color)
+    ok_dpt = (losses.get(49, np.inf) < losses.get(0, 0.0) and est.device.type == device
+              and bool(torch.isfinite(est).all()))
+    print(f"[tools] train_tiny_dpt 50 steps on {device}: ssi_loss {losses}; estimate "
+          f"{tuple(est.shape)} in [{float(est.min()):.4f}, {float(est.max()):.4f}]", flush=True)
+
+    d = G.to_numpy_dict(slam.gaussians)
+    n_rest = (cfg["mapping"]["sh_degree"] + 1) ** 2 - 1
+    d["features_rest"] = d["features_rest"][:, :n_rest]
+    t1 = time.perf_counter()
+    ply_io.save_ply(str(Path(tmp) / "map.ply"), **d)
+    t_save = time.perf_counter() - t1
+    back = ply_io.load_ply(str(Path(tmp) / "map.ply"))
+    ok_ply = all(np.array_equal(back[k], v) for k, v in d.items())
+    print(f"[tools] PLY of the map ({slam.gaussians.n} gaussians): native codec "
+          f"{'loaded' if ply_io.native_loaded() else 'not loaded (numpy path)'}, saved in "
+          f"{t_save * 1e3:.1f} ms, read back {'bit-equal' if ok_ply else 'DIFFERENT'}",
+          flush=True)
+
+    G.capture(slam.gaussians, slam.adam, Path(tmp) / "capture.npz")
+    m, adam = G.restore(Path(tmp) / "capture.npz", device=device)
+    ok_cap = adam.step == slam.adam.step and all(
+        torch.equal(a, b) for x, y in ((m, slam.gaussians), (adam.mu, slam.adam.mu),
+                                       (adam.nu, slam.adam.nu)) for a, b in zip(x, y))
+    print(f"[tools] capture/restore: {m.n} rows, step {adam.step}, "
+          f"{'bit-equal' if ok_cap else 'DIFFERENT'}", flush=True)
+
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        visualizer.main(["--config", str(yml), "--iteration", str(slam.n_img), "--frames", "1",
+                         "--device", device])
+    view_launches = kernels.launch_counts()["composite_fwd"]
+    png = cv2.imread(str(Path(cfg["outputdir"]) / "visualizer" / "view_0000.png"))
+    ok_view = (png is not None and png.shape == (cfg["desired_height"],
+                                                 2 * cfg["desired_width"], 3)
+               and view_launches > 0 and float(png.std()) > 1.0)
+    print(f"[tools] visualizer view: {None if png is None else png.shape}, kernel 1 launched "
+          f"{view_launches} time(s); phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    if not (ok_dpt and ok_ply and ok_cap and ok_view):
+        fail(f"tools: train_tiny_dpt {ok_dpt}, PLY {ok_ply}, capture {ok_cap}, view {ok_view}")
 
 
 def count_map_rebins():
@@ -584,7 +713,7 @@ def check_ba(slam, rebins, ms_it, main_rebins, main_ms_it):
         fail(f"BA: no earlier keyframe moved by a nonzero amount below 0.05: {moved}")
 
 
-def check_resume(cfg, slam0):
+def check_resume(cfg, slam0, scene=None):
     """The port resumed from `save_iterations` [3] of the BA run: restored
     poses equal to the saved ones, the keyframe count, a finite
     evaluation; then LPIPS-proxy on the card against the CPU on one frame."""
@@ -593,8 +722,10 @@ def check_resume(cfg, slam0):
     from mm3dgs_slam_torch.eval.lpips import lpips_proxy
     from mm3dgs_slam_torch.slam.slam import SLAM
 
+    from mm3dgs_slam_torch.data.synthetic import load_scene
+
     r = np.load(Path(cfg["outputdir"]) / "results.npz", allow_pickle=True)
-    slam = SLAM(dict(cfg, iteration=3), device="cuda")
+    slam = SLAM(dict(cfg, iteration=3), device="cuda", scene=load_scene(scene))
     n = len(r["pose_est"])
     psnrs, ssims, _, proxies = slam.evaluate_images(n)
     print(f"[resume] {slam.gaussians.n} gaussians from iteration_3, {len(slam.mapper.keyframes)} "
@@ -741,6 +872,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from mm3dgs_slam_torch.__main__ import run
     from mm3dgs_slam_torch.config import load_config
+    from mm3dgs_slam_torch.data.synthetic import jax_scene_path
+    from mm3dgs_slam_torch.scripts import run_golden
     from mm3dgs_slam_torch.eval.ate import camera_centers
     from mm3dgs_slam_torch.ops import kernels
 
@@ -771,9 +904,11 @@ def main() -> int:
     cfg = load_config(str(ROOT / "configs" / "synthetic_tum.yml"))
     cfg["synthetic"]["n_frames"] = N_FRAMES
     reuse_synthetic_frames()
+    # the JAX package's scene of synthetic_tum.yml: phases 3, 4, 7, 8 and 13
+    scene_npz = str(jax_scene_path("synthetic_tum"))
 
-    # phase 3: kernels against their plain versions
-    f0, f1, cam = synthetic_frames(cfg, device)
+    # phase 3: kernels against their plain versions, on phase 4's frames 0 and 1
+    f0, f1, cam = synthetic_frames(cfg, device, scene_npz)
     scene = check_scene((f0, f1), RenderSettings(cam=cam), device)
     rows = check_kernels(scene)
     ba_rel = check_ba_chain(scene)
@@ -830,10 +965,16 @@ def main() -> int:
                                           "composite_pose_bwd": 5}[k["name"]]
         print(f"[check 600x340] {time.perf_counter() - t0:.1f} s", flush=True)
 
-        # phase 4: the main path, the CLI's code path
-        cfg["outputdir"] = str(Path(tmp) / "out_main")
+        # phase 4: the main path, through run_golden on the JAX package's
+        # scene of synthetic_tum.yml, with the frame decomposition
+        on_scene = lambda c, dev: run(c, dev, scene=scene_npz)  # noqa: E731
+        cfg = run_golden.golden_config(str(ROOT / "configs" / "synthetic_tum.yml"),
+                                       str(Path(tmp) / "out_main"), decomp=True,
+                                       frames=N_FRAMES)
         rebins = count_map_rebins()
-        launches, _, _ = drive(run, kernels, "main", cfg, ate_max=0.03, psnr_min=17.0)
+        launches, main_slam, _ = drive(on_scene, kernels, "main", cfg, ate_max=0.03,
+                                       psnr_min=17.0, extra_keys=DECOMP_KEYS)
+        check_decomp(main_slam, cfg)
         main_rebins = rebins[0]
         main_ms_it = float(np.load(Path(cfg["outputdir"]) / "results.npz")["avg_mapping_it_time"])
 
@@ -866,7 +1007,7 @@ def main() -> int:
         scfg["synthetic"]["n_frames"] = N_FRAMES
         scfg.update(method="splatam", outputdir=str(Path(tmp) / "out_splatam"))
         scfg["debug"]["create_video"] = True
-        splatam, sslam, s_by_nc = drive(run, kernels, "splatam", scfg, ate_max=0.03,
+        splatam, sslam, s_by_nc = drive(on_scene, kernels, "splatam", scfg, ate_max=0.03,
                                         psnr_min=17.0)
         check_splatam(sslam, s_by_nc, scfg)
 
@@ -877,10 +1018,10 @@ def main() -> int:
         bcfg.update(outputdir=str(Path(tmp) / "out_ba"), save_iterations=[3])
         bcfg["mapping"]["do_BA"] = True
         rebins[0] = 0
-        ba, bslam, _ = drive(run, kernels, "ba", bcfg, ate_max=0.03, psnr_min=17.0)
+        ba, bslam, _ = drive(on_scene, kernels, "ba", bcfg, ate_max=0.03, psnr_min=17.0)
         ba_ms_it = float(np.load(Path(bcfg["outputdir"]) / "results.npz")["avg_mapping_it_time"])
         check_ba(bslam, rebins[0], ba_ms_it, main_rebins, main_ms_it)
-        check_resume(bcfg, bslam)
+        check_resume(bcfg, bslam, scene_npz)
 
         # phase 9: TUM (monocular, TinyDPT, crop_edge 8, tum_heuristic)
         tcfg = load_config(str(ROOT / "configs" / "TUM.yml"))
@@ -907,8 +1048,16 @@ def main() -> int:
         # phase 11: the eval CLIs on phase 10's output
         check_eval_clis(rcfg)
 
+        # phase 12: the bench, in its own process
+        bench = run_bench()
+
+        # phase 13: the tools on phase 4's run
+        check_tools(cfg, main_slam, scene_npz, tmp, kernels)
+
     paths = {"synthetic_tum": launches, "utmm": utmm, "utmm_prior": prior, "mono": mono,
-             "splatam": splatam, "ba": ba, "tum": tum, "replica": replica}
+             "splatam": splatam, "ba": ba, "tum": tum, "replica": replica,
+             "bench_track": bench["detail"]["launches"]["track"],
+             "bench_map": bench["detail"]["launches"]["map"]}
     print(f"[launches] per path: {paths}; splatam by nc {s_by_nc}", flush=True)
     for k in rows:
         k["launches"] = launches[k["name"]]

@@ -13,12 +13,14 @@ import sys
 import numpy as np
 
 
-def run(cfg: dict, device: str = "cuda"):
-    """Construct and run the SLAM; returns it (its `failed` is None on
-    success)."""
+def run(cfg: dict, device: str = "cuda", scene: str | None = None):
+    """Construct and run the SLAM, on the scene .npz at `scene` in place of
+    a synthetic config's generated one when given; returns it (its `failed`
+    is None on success)."""
+    from .data.synthetic import load_scene
     from .slam.slam import SLAM
 
-    slam = SLAM(cfg, device=device)
+    slam = SLAM(cfg, device=device, scene=None if scene is None else load_scene(scene))
     slam.run()
     return slam
 

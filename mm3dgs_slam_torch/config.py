@@ -16,6 +16,10 @@ pose backward) are always taken. `cfg["device"]` is ignored too; the device
 is an argument of the entry points. `dpt_model` and `dpt_weights` (the
 TinyDPT .npz) choose the monocular-depth estimator when `use_gt_depth` is
 false; `depth_fit` ("ls" | "tum_heuristic") anchors its scale on frame 0.
+Of the `debug:` block the port honours get_runtime_stats, create_video,
+save_keyframes, `frame_decomp` (the per-frame wall decomposition,
+slam/slam.py) and `jax_profiler_dir` (a torch.profiler trace of the whole
+run written there).
 
 An unknown dataset name raises ValueError when the SLAM is constructed
 (data/__init__.py).

@@ -8,13 +8,18 @@ this generator draws the same distributions from
 `numpy.random.default_rng(seed)`, so its scenes (and golden numbers) differ
 from the JAX package's for the same seed. A caller can inject a scene
 instead (`scene=` numpy arrays), which is how the tests feed both packages
-the same one.
+the same one. The JAX package's own scenes of configs/synthetic_tum.yml and
+configs/synthetic_hard.yml ship as `assets/jax_scene_<config>.npz`
+(`load_scene`, `jax_scene_path`): injected, the port renders the frames of
+the JAX package's golden runs.
 
 Config block (all optional):
   synthetic: {n_gaussians: 400, n_frames: 12, seed: 0, orbit_radius: 0.15,
               textured: false, occluders: 0, noise_std: 0.0}
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -26,6 +31,7 @@ from ..ops.render import ActivatedGaussians, RenderSettings, project_for_pose
 from ..ops.sh import rgb_to_sh
 
 SCENE_FIELDS = ("xyz", "scales", "rotations", "opacity", "rgb")
+ASSETS = Path(__file__).resolve().parent.parent / "assets"
 
 
 def _texture_rgb(xyz):
@@ -92,13 +98,28 @@ def render_frame(scene: ActivatedGaussians, w2c: np.ndarray, rs: RenderSettings)
 
 
 def scene_gaussians(scene: dict, device=None) -> ActivatedGaussians:
-    """Scene arrays (make_scene's dict) -> ActivatedGaussians on `device`."""
-    t = {k: torch.as_tensor(np.asarray(scene[k], np.float32), device=device)
-         for k in SCENE_FIELDS}
+    """Scene arrays -> ActivatedGaussians on `device`: xyz, scales,
+    rotations, opacity and either shs [N, 1, 3] (taken as they are) or rgb
+    (make_scene's dict; converted with rgb_to_sh)."""
+    t = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+         for k, v in scene.items() if k in SCENE_FIELDS + ("shs",)}
+    shs = t["shs"] if "shs" in t else rgb_to_sh(t["rgb"])[:, None, :]
     return ActivatedGaussians(
         xyz=t["xyz"], scales=t["scales"], rotations=t["rotations"],
-        opacity=t["opacity"], shs=rgb_to_sh(t["rgb"])[:, None, :],
+        opacity=t["opacity"], shs=shs,
         alive=torch.ones(t["xyz"].shape[0], dtype=torch.bool, device=device))
+
+
+def jax_scene_path(config_name: str) -> Path:
+    """The shipped JAX-package scene of configs/<config_name>.yml."""
+    return ASSETS / f"jax_scene_{config_name}.npz"
+
+
+def load_scene(path) -> dict:
+    """A scene .npz (xyz, scales, rotations, opacity, shs or rgb) as a dict
+    of float32 arrays, for `SyntheticDataset(scene=...)` / `SLAM(scene=...)`."""
+    with np.load(path) as z:
+        return {k: np.asarray(z[k], np.float32) for k in z.files}
 
 
 class SyntheticDataset:

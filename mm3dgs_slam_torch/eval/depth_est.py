@@ -9,8 +9,8 @@ frame by the LS scale/shift fit (slam/SLAM.py:411-448).
     without a bundle it raises RuntimeError,
   * ``tiny_dpt``: a small conv encoder/decoder whose .npz weights (the JAX
     package's format, e.g. assets/tiny_dpt_synthetic.npz) come from the
-    ``dpt_weights`` config key or ``MM3DGS_TINY_DPT_WEIGHTS``; training it
-    (`TinyDPT.fit`) is not ported,
+    ``dpt_weights`` config key or ``MM3DGS_TINY_DPT_WEIGHTS``; `TinyDPT.fit`
+    trains them (scripts/train_tiny_dpt.py),
   * ``synthetic_affine``: the affine inverse-depth oracle 1/(a z + b) from
     GT depth, for tests of the scale/shift and Pearson plumbing.
 """
@@ -74,6 +74,66 @@ class TinyDPT:
         with np.load(path) as z:
             self.params = {k: torch.as_tensor(np.asarray(z[k], np.float32), device=self.device)
                            for k in z.files}
+
+    @staticmethod
+    def init_params(rng: np.random.Generator) -> dict:
+        """Fresh parameters as float32 numpy arrays, drawn from `rng` in the
+        JAX package's order (fan-in-scaled normal weights, zero biases)."""
+        p = {}
+        cin = 3
+        for i, c in enumerate(TinyDPT.CH):
+            p[f"enc{i}_w"] = (rng.normal(0, 1, (c, cin, 3, 3)) / np.sqrt(cin * 9)).astype(np.float32)
+            p[f"enc{i}_b"] = np.zeros((c,), np.float32)
+            cin = c
+        chs = TinyDPT.CH
+        for i in range(len(chs) - 1, 0, -1):
+            cin_d = chs[i] + chs[i - 1]  # upsampled + skip
+            p[f"dec{i}_w"] = (rng.normal(0, 1, (chs[i - 1], cin_d, 3, 3))
+                              / np.sqrt(cin_d * 9)).astype(np.float32)
+            p[f"dec{i}_b"] = np.zeros((chs[i - 1],), np.float32)
+        p["head_w"] = (rng.normal(0, 1, (1, chs[0], 3, 3)) / np.sqrt(chs[0] * 9)).astype(np.float32)
+        p["head_b"] = np.zeros((1,), np.float32)
+        return p
+
+    @staticmethod
+    def ssi_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Scale/shift-invariant loss: the mean squared difference of the two
+        maps, each standardized (population variance + 1e-6)."""
+        x, y = pred.reshape(-1), target.reshape(-1)
+        xs = (x - x.mean()) / torch.sqrt(x.var(unbiased=False) + 1e-6)
+        ys = (y - y.mean()) / torch.sqrt(y.var(unbiased=False) + 1e-6)
+        return torch.mean((xs - ys) ** 2)
+
+    @staticmethod
+    def fit(imgs: np.ndarray, invs: np.ndarray, steps: int = 600, lr: float = 3e-3,
+            seed: int = 0, verbose: bool = False, device="cpu") -> dict:
+        """Fit TinyDPT on [N, 3, H, W] images and [N, H, W] inverse depths
+        (H, W multiples of 8) with `ssi_loss` and Adam (torch's defaults,
+        optax.adam's b1, b2, eps), one image per step in `rng.integers`
+        order, on `device`. Returns the best parameters as numpy: those
+        after the step whose loss (taken before it) was lowest, as the JAX
+        package keeps them."""
+        rng = np.random.default_rng(seed)
+        dev = torch.device(device)
+        best, best_params = np.inf, TinyDPT.init_params(rng)
+        params = {k: torch.tensor(v, device=dev, requires_grad=True)
+                  for k, v in best_params.items()}
+        imgs = torch.as_tensor(np.asarray(imgs, np.float32), device=dev)
+        invs = torch.as_tensor(np.asarray(invs, np.float32), device=dev)
+        opt = torch.optim.Adam(params.values(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        for it in range(steps):
+            i = int(rng.integers(0, imgs.shape[0]))
+            opt.zero_grad(set_to_none=True)
+            loss = TinyDPT.ssi_loss(TinyDPT.forward(params, imgs[i]), invs[i])
+            loss.backward()
+            opt.step()
+            lf = loss.item()
+            if lf < best:
+                best = lf
+                best_params = {k: v.detach().cpu().numpy().copy() for k, v in params.items()}
+            if verbose and (it % 100 == 0 or it == steps - 1):
+                print(f"step {it}: ssi_loss={lf:.6f} (best {best:.6f})")
+        return best_params
 
     @staticmethod
     def forward(params: dict, img: torch.Tensor) -> torch.Tensor:

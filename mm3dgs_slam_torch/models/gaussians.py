@@ -193,3 +193,27 @@ def prune_mask_reference(m: GaussianMap, extent: float, min_opacity: float,
 
 def to_numpy_dict(m: GaussianMap) -> dict:
     return {f: getattr(m, f).detach().cpu().numpy() for f in PARAM_FIELDS}
+
+
+def capture(m: GaussianMap, state: AdamState, path) -> None:
+    """The whole training state, map and Adam moments, as an .npz with the
+    JAX package's keys (models/gaussians.py `capture`; the reference's
+    GaussianModel.capture): m_<leaf>, mu_<leaf>, nu_<leaf>, n_alive, step.
+    This map holds exactly its live rows, so n_alive is the row count."""
+    blob = {f"m_{f}": getattr(m, f).detach().cpu().numpy() for f in PARAM_FIELDS}
+    blob.update({f"mu_{f}": getattr(state.mu, f).detach().cpu().numpy() for f in PARAM_FIELDS})
+    blob.update({f"nu_{f}": getattr(state.nu, f).detach().cpu().numpy() for f in PARAM_FIELDS})
+    blob["n_alive"] = np.asarray(m.n, np.int32)
+    blob["step"] = np.asarray(state.step, np.int32)
+    np.savez(path, **blob)
+
+
+def restore(path, device=None) -> tuple[GaussianMap, AdamState]:
+    """Inverse of `capture`, for either package's file: the first n_alive
+    rows of each leaf (a JAX map is padded to its capacity) on `device`."""
+    with np.load(path) as blob:
+        n = int(blob["n_alive"])
+        leaves = lambda p: GaussianMap(*(  # noqa: E731
+            torch.tensor(blob[f"{p}_{f}"][:n], dtype=torch.float32, device=device)
+            for f in PARAM_FIELDS))
+        return leaves("m"), AdamState(leaves("mu"), leaves("nu"), int(blob["step"]))

@@ -1,15 +1,67 @@
 """Binary PLY checkpoint I/O in the reference's attribute schema (JAX
-counterpart: models/ply_io.py numpy path; gaussian_model.py:205-257):
+counterpart: models/ply_io.py; gaussian_model.py:205-257):
 
   x y z nx ny nz f_dc_{0..2} f_rest_{0..3R-1} opacity scale_{0..2}
   rot_{0..3} rgb_{0..2}           (float32, binary little-endian)
+
+Rows are interleaved by the native C++ codec (native/libply_codec.so at the
+repository root, multithreaded, bound with ctypes as the JAX package binds
+it) when that library loads, else by numpy; the two write the same bytes.
+`native_loaded()` says which path saving takes.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import re
+from pathlib import Path
 
 import numpy as np
+
+NATIVE_LIB = Path(__file__).resolve().parents[2] / "native" / "libply_codec.so"
+_NATIVE = None   # None: not tried yet; False: unavailable; else the library
+_F32P = ctypes.POINTER(ctypes.c_float)
+
+
+def _native():
+    """The native codec, loaded on first use; None where it does not load."""
+    global _NATIVE
+    if _NATIVE is None:
+        try:
+            lib = ctypes.CDLL(str(NATIVE_LIB))
+            lib.ply_pack_rows.argtypes = [ctypes.c_int64] * 3 + [_F32P] * 8
+            lib.ply_unpack_rows.argtypes = [ctypes.c_int64] * 3 + [_F32P] * 8
+            lib.ply_pack_rows.restype = lib.ply_unpack_rows.restype = None
+            lib.ply_row_stride.argtypes = [ctypes.c_int64] * 2
+            lib.ply_row_stride.restype = ctypes.c_int64
+            _NATIVE = lib
+        except (OSError, AttributeError):
+            _NATIVE = False
+    return _NATIVE or None
+
+
+def native_loaded() -> bool:
+    """Whether save_ply interleaves rows with the native codec."""
+    return _native() is not None
+
+
+def _pack_native(lib, xyz, features_dc, features_rest, opacity, scaling, rotation, rgb):
+    n, n_dc, n_rest = xyz.shape[0], features_dc.shape[1], features_rest.shape[1]
+    cols = np.empty((n, lib.ply_row_stride(n_dc, n_rest)), dtype="<f4")
+    args = [np.ascontiguousarray(a, dtype=np.float32)
+            for a in (xyz, features_dc, features_rest, opacity, scaling, rotation, rgb)]
+    lib.ply_pack_rows(n, n_dc, n_rest, *(a.ctypes.data_as(_F32P) for a in args),
+                      cols.ctypes.data_as(_F32P))
+    return cols
+
+
+def _pack_numpy(xyz, features_dc, features_rest, opacity, scaling, rotation, rgb):
+    n = xyz.shape[0]
+    # channel-major SH flattening (torch .transpose(1, 2).flatten(1))
+    f_dc = np.transpose(features_dc, (0, 2, 1)).reshape(n, 3 * features_dc.shape[1])
+    f_rest = np.transpose(features_rest, (0, 2, 1)).reshape(n, 3 * features_rest.shape[1])
+    return np.concatenate([xyz, np.zeros_like(xyz), f_dc, f_rest, opacity, scaling,
+                           rotation, rgb], axis=1).astype("<f4")
 
 
 def _attribute_names(n_rest: int) -> list[str]:
@@ -26,13 +78,10 @@ def _attribute_names(n_rest: int) -> list[str]:
 def save_ply(path, xyz, features_dc, features_rest, opacity, scaling,
              rotation, rgb) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    n = xyz.shape[0]
-    n_dc, n_rest = features_dc.shape[1], features_rest.shape[1]
-    # channel-major SH flattening (torch .transpose(1, 2).flatten(1))
-    f_dc = np.transpose(features_dc, (0, 2, 1)).reshape(n, 3 * n_dc)
-    f_rest = np.transpose(features_rest, (0, 2, 1)).reshape(n, 3 * n_rest)
-    cols = np.concatenate([xyz, np.zeros_like(xyz), f_dc, f_rest, opacity,
-                           scaling, rotation, rgb], axis=1).astype("<f4")
+    n, n_rest = xyz.shape[0], features_rest.shape[1]
+    arrays = (xyz, features_dc, features_rest, opacity, scaling, rotation, rgb)
+    lib = _native() if n > 0 else None
+    cols = _pack_native(lib, *arrays) if lib is not None else _pack_numpy(*arrays)
     names = _attribute_names(n_rest)
     header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
     header += [f"property float {a}" for a in names] + ["end_header"]

@@ -7,10 +7,17 @@ ranked by depth overlap) and bundle adjustment.
 Host randomness is one `np.random.default_rng(cfg seed)` stream drawn in the
 JAX package's call order (splatam's pixel sample, the window permutation,
 then the schedule), so windows and schedules match it.
+
+With `debug.frame_decomp` on (the SLAM sets `decomp_on` and shares its
+`decomp` dict) `run_frame` books its wall time to the JAX package's map.*
+phases: covis_set, niqe (the NIQE score), kf_decision (the rest of the
+keyframe decision), candidates, add_keyframe, window_upload, ba_mask and
+optimize, each ending at a card synchronize.
 """
 from __future__ import annotations
 
 import os
+import time
 from collections import defaultdict, deque
 from dataclasses import dataclass
 from typing import List, Optional
@@ -66,6 +73,8 @@ class Mapper:
         self.mapping_time_sum = 0.0
         self.mapping_iter_count = 0
         self.max_new = int(cfg["tpu"].get("max_new_per_frame", -1))
+        self.decomp_on = False
+        self.decomp = defaultdict(float)
 
         z = torch.zeros((0,), dtype=torch.float32, device=device)
         self.max_radii, self.grad_accum, self.denom = z, z, z
@@ -95,6 +104,17 @@ class Mapper:
     def _dev(self, x):
         return None if x is None else torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def _ph(self, name: str, t0: float) -> float:
+        """Book the time since t0 to a map.* phase (ending at a card
+        synchronize while the decomposition is on); returns a fresh t0."""
+        if not self.decomp_on:
+            return t0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        self.decomp[name] += t1 - t0
+        return t1
+
     # -- keyframe decision (mapper.py:103-173) ---------------------------
     def need_new_keyframe(self, idx, g_act, est_pose, gt_color_np, gt_depth_np,
                           est_depth_np, n_img: int) -> bool:
@@ -102,7 +122,10 @@ class Mapper:
         if self.method == "splatam":
             return idx == 0 or (idx + 1) % mp["kf_every"] == 0 or idx == n_img - 2
         if mp["niqe_kf"]:
+            t0 = time.perf_counter()
             score = self.quality(gt_color_np)
+            if self.decomp_on:
+                self.decomp["map.niqe"] += time.perf_counter() - t0
             curr = KeyFrame(idx, gt_color_np, np.asarray(est_pose), gt_depth_np,
                             est_depth_np, score)
             if idx >= mp["niqe_window_size"]:
@@ -245,17 +268,24 @@ class Mapper:
         adjustment the current frame's slot of the optimized window.
         gt_color/gt_depth/est_depth are device tensors (est_depth may be
         None); the *_np arrays feed keyframes."""
+        t0 = time.perf_counter()
         g_act = m.activated()
         window = self.get_covisible_set(idx, g_act, est_pose, gt_depth,
                                         N=self.cfg["mapping"]["covisibility_level"])
+        t0 = self._ph("map.covis_set", t0)
         if self.max_radii.shape[0] != m.n:
             self.max_radii = torch.zeros((m.n,), dtype=torch.float32, device=self.device)
             self.grad_accum = torch.zeros_like(self.max_radii)
             self.denom = torch.zeros_like(self.max_radii)
 
         n_added = None
-        if self.need_new_keyframe(idx, g_act, est_pose, gt_color_np, gt_depth_np, est_depth_np,
-                                  n_img):
+        niqe_before = self.decomp["map.niqe"] if self.decomp_on else 0.0
+        is_new_kf = self.need_new_keyframe(idx, g_act, est_pose, gt_color_np, gt_depth_np,
+                                           est_depth_np, n_img)
+        if self.decomp_on:
+            # the NIQE seconds went to map.niqe; the rest of the decision here
+            t0 = self._ph("map.kf_decision", t0 + self.decomp["map.niqe"] - niqe_before)
+        if is_new_kf:
             depth_for_init = gt_depth if self.cfg["use_gt_depth"] else est_depth
             stats = new_gaussian_candidates(
                 g_act, self._dev(est_pose), gt_color, depth_for_init, self.rs,
@@ -265,7 +295,9 @@ class Mapper:
             self.max_radii = torch.zeros((m.n,), dtype=torch.float32, device=self.device)
             self.grad_accum = torch.zeros_like(self.max_radii)
             self.denom = torch.zeros_like(self.max_radii)
+            t0 = self._ph("map.candidates", t0)
             self.add_keyframe(idx, est_pose, gt_color_np, gt_depth_np, est_depth_np, m.activated())
+            t0 = self._ph("map.add_keyframe", t0)
 
         zeros = torch.zeros_like(gt_color[0])
         frames = [self._kf_tensors[k] for k in window] + [(gt_color, gt_depth, est_depth)]
@@ -275,6 +307,7 @@ class Mapper:
         poses = [self._kf_poses[k] for k in window] + [est_pose]
         kf_poses = torch.as_tensor(np.stack(poses), dtype=torch.float32, device=self.device)
         schedule = self._build_schedule(len(frames))
+        t0 = self._ph("map.window_upload", t0)
 
         ba = self.opt_settings.do_BA and idx > 0
         ba_mask = None
@@ -284,10 +317,12 @@ class Mapper:
             ba_mask = covisible_gaussian_mask(m.activated(), kf_poses, self.rs, 2)
             if n_added is not None:
                 ba_mask[m.n - n_added:] = True
+        t0 = self._ph("map.ba_mask", t0)
         st = optimize_map(MapState(m, adam, self.max_radii, self.grad_accum, self.denom,
                                    ba_mask=ba_mask),
                           kf_colors, kf_depths, kf_ests, kf_poses, schedule,
                           self.camera_extent, self.opt_settings)
+        self._ph("map.optimize", t0)
         self.max_radii, self.grad_accum, self.denom = st.max_radii, st.grad_accum, st.denom
         pose = est_pose
         if ba:

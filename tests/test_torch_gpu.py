@@ -282,3 +282,12 @@ def test_kernels_on_a_partial_tile_column(hw):
     work = torch.zeros(2, dtype=torch.int64, device=dev)
     kernels.composite_fwd(packed, *_args(bins, cam), 3, work=work)
     assert int(work[0]) == want["warp_pairs"]
+
+
+def test_bench_kernel_check_passes():
+    """The bench's own kernel check (kernels 1-3 against their plain
+    versions on its 2,048-Gaussian 120x160 scene) on the card."""
+    from mm3dgs_slam_torch import bench
+
+    out = bench.kernel_check(_cuda())
+    assert out["opacity_grad_max"] > 0 and max(out.values()) < 1e3
