@@ -23,6 +23,11 @@ Phases (each passes or the script exits non-zero):
      sequence of phase 10: kernel 1 at nc 3, 4 and 5, kernel 2 at nc 4 (the
      width replica.yml maps at: its mapping.use_depth_estimate_loss is on),
      kernel 3 at nc 5;
+  3d. the three kernels over the tile windows of 2 and 7 ranks (the
+     tile-sharded render's launches: grid n_local, tile tile_lo + block) on
+     phase 3's scene: every window against its windowed plain version, the
+     windows stitched against the whole-grid launch, each window launch's
+     time beside its bound;
   4. the main path: the port's golden runner's config and run (`python -m
      mm3dgs_slam_torch.scripts.run_golden --scene
      mm3dgs_slam_torch/assets/jax_scene_synthetic_tum.npz --decomp`, the
@@ -83,7 +88,14 @@ Phases (each passes or the script exits non-zero):
      on its frames (the loss falls; the weights load and give a finite
      depth), a PLY save and load of its map (bit-equal; whether the native
      codec ran), capture and restore of its map and Adam state (bit-equal),
-     and one offline visualizer view rendered on the card.
+     and one offline visualizer view rendered on the card;
+ 14. the sharded map (run right after phase 4, whose run it is held to):
+     `torchrun --standalone --nproc_per_node 2 -m
+     mm3dgs_slam_torch.scripts.run_golden --mesh-devices 2` on
+     configs/synthetic_tum.yml and phase 4's scene, 3 frames, the two ranks
+     sharing the card over gloo; each rank's rows, windowed launches and
+     ms/iteration printed; ATE < 0.03 m, PSNR > 17 dB, within 5e-3 m and
+     1 dB of phase 4 over the same frames, both ranks' poses bit-equal.
 Phase 3 also holds kernel 3 at nc 6 (splatam tracking) and bundle
 adjustment's pose gradient (kernel 2's dpacked chained through the
 projection into the pose) against the plain chain; every path's
@@ -444,6 +456,195 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
         row[f"nc{nc}"] = k3[nc]
     rows.append(row)
     return rows
+
+
+def check_windows(scene, worlds=(2, 7), tag="check 3d"):
+    """Phase 3d, on phase 3's scene: each kernel launched over the tile
+    windows of W ranks, as the tile-sharded render launches it (kernel 1 at
+    nc 5, kernel 2 at nc 3, kernel 3 at nc 5): every window against its
+    windowed plain version, the windows stitched against the whole-grid
+    launch (kernel 1's outputs and kernel 3's partials compared bit for
+    bit, kernel 2's dpacked summed over the windows within GRAD_TOL), and
+    each window launch's CUDA-event time beside its bound, worked out from
+    the window's walk counts as check_kernels's bounds are. Returns
+    {kernel name: {"W<n>": {...}}} for the kernels line."""
+    import torch
+
+    from mm3dgs_slam_torch.ops import composite as plain
+    from mm3dgs_slam_torch.ops import kernels
+    from mm3dgs_slam_torch.ops.binning import build_bins
+    from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
+    from mm3dgs_slam_torch.ops.render import effective_scales, means_cam_soa, project_for_pose
+    from mm3dgs_slam_torch.parallel.mesh import tiles_per_shard
+
+    g, pose1, rs, packed, bins = scene
+    cam, device = rs.cam, packed.device
+    with torch.no_grad():
+        proj = project_for_pose(g, pose1, rs)
+        packed32 = torch.cat([packed, conic_pose_jacobian_rows(
+            means_cam_soa(g.xyz, pose1), effective_scales(g.scales, rs), g.rotations, g.xyz,
+            cam)], 1).contiguous()
+    args = (bins.pair_gauss, bins.tile_start, bins.tile_count)
+    gen = torch.Generator(device=device).manual_seed(3)
+    out = {"composite_fwd": {}, "composite_bwd": {}, "composite_pose_bwd": {}}
+    for world in worlds:
+        tpb = tiles_per_shard(cam, world)
+        n_pad = world * tpb
+        acc5, tfin5 = kernels.composite_fwd(packed32, *args, cam, 5)
+        acc3, tfin3 = kernels.composite_fwd(packed, *args, cam, 3)
+        d5 = torch.randn((n_pad, 5, 256), generator=gen, device=device)
+        dt = torch.randn((n_pad, 1, 256), generator=gen, device=device)
+        d3 = d5[:, :3].contiguous()
+        whole = cam.n_tiles
+        psum = kernels.composite_pose_bwd(packed32, *args, acc5, tfin5, d5[:whole], dt[:whole],
+                                          cam, 5)
+        dpacked = kernels.composite_bwd(packed, *args, acc3, tfin3, d3[:whole], dt[:whole],
+                                        cam, 3)
+        stitched, psums, asums, dsum = [], [], [], torch.zeros_like(dpacked)
+        res = {k: dict(ms=[], bound_ms=[], bound_by=[], max_abs_err=0.0) for k in out}
+        for r in range(world):
+            lo, sl = r * tpb, slice(r * tpb, (r + 1) * tpb)
+            wb = build_bins(proj, cam, lo, tpb)
+            wargs = (wb.pair_gauss, wb.tile_start, wb.tile_count, cam)
+            win = dict(tile_lo=lo, n_local=tpb)
+            n_tiles_w = max(min(tpb, cam.n_tiles - lo), 0)
+            n_pix, n_pairs = n_tiles_w * 256, wb.pair_gauss.shape[0]
+            n_seen = int(torch.unique(wb.pair_gauss).numel())
+            a, t = kernels.composite_fwd(packed32, *wargs, 5, **win)
+            ap, tp, work = plain.composite_fwd_plain(packed32, *wargs, 5, count_work=True, **win)
+            e_f = max(float((a - ap).abs().max()), float((t - tp).abs().max()))
+            ok_f = (max_violation(a, ap, **IMG_TOL)[1] and max_violation(t, tp, **IMG_TOL)[1])
+            used, ev, pu = work["used"], work["used"] + work["stops"], work["pairs_used"]
+            pa = (packed32, *wargs[:3], a, t, d5[sl], dt[sl], cam, 5)
+            pk = kernels.composite_pose_bwd(*pa, **win)
+            pp, asum = plain.composite_pose_bwd_plain(*pa, abs_sum=True, **win)
+            e_p, ok_p = max_violation(pk, pp, atol=PARTIAL_ATOL * asum, rtol=GRAD_TOL["rtol"])
+            a3, t3 = kernels.composite_fwd(packed, *wargs, 3, **win)
+            ba = (packed, *wargs[:3], a3, t3, d3[sl], dt[sl], cam, 3)
+            dk = kernels.composite_bwd(*ba, **win)
+            e_b, ok_b = max_violation(dk, plain.composite_bwd_plain(*ba, **win), **GRAD_TOL)
+            if not (ok_f and ok_p and ok_b):
+                fail(f"{tag}: W={world} window {r}: a windowed kernel disagrees with its plain "
+                     f"version (errors {e_f:.3e}, {e_b:.3e}, {e_p:.3e})")
+            stitched.append(torch.cat([a, t], 1))
+            psums.append(pk)
+            asums.append(asum)
+            dsum += dk
+            times = (cuda_ms(lambda: kernels.composite_fwd(packed32, *wargs, 5, **win), 10),
+                     cuda_ms(lambda: kernels.composite_bwd(*ba, **win), 10),
+                     cuda_ms(lambda: kernels.composite_pose_bwd(*pa, **win), 10))
+            bounds = (
+                bound_ms(4 * (n_seen * 11 + n_pairs + 2 * tpb + n_pix * 6),
+                         ev * OPS_TEST + used * OPS_FWD_USE(5)),
+                bound_ms(4 * (n_seen * 9 + n_pairs + 2 * tpb + n_pix * 8 + packed.shape[0] * 9),
+                         n_pix * OPS_PIX_BWD(3) + ev * OPS_TEST + used * OPS_BWD_USE(3) + pu * 9),
+                bound_ms(4 * (n_seen * 23 + n_pairs + 2 * tpb + n_pix * 12 + tpb * 12),
+                         n_pix * OPS_PIX_BWD(5) + ev * OPS_TEST + used * OPS_POSE_USE(5)
+                         + pu * OPS_POSE_PAIR(5)))
+            for k, tk, (b, by), e in zip(out, times, bounds, (e_f, e_b, e_p)):
+                res[k]["ms"].append(tk)
+                res[k]["bound_ms"].append(b)
+                res[k]["bound_by"].append(by)
+                res[k]["max_abs_err"] = max(res[k]["max_abs_err"], e)
+            print(f"[{tag}] W={world} window {r} (tiles {lo}-{lo + tpb - 1}, {n_tiles_w} in the "
+                  f"grid, {n_pairs} pairs): kernel 1 nc=5 {times[0]:.4f} ms (bound "
+                  f"{bounds[0][0]:.4f}), kernel 2 nc=3 {times[1]:.4f} ms (bound "
+                  f"{bounds[1][0]:.4f}), kernel 3 nc=5 {times[2]:.4f} ms (bound "
+                  f"{bounds[2][0]:.4f}); max abs err against the windowed plain versions "
+                  f"{e_f:.3e}, {e_b:.3e}, {e_p:.3e} (ok)", flush=True)
+        st, ps = torch.cat(stitched), torch.cat(psums)
+        diff_f = float((st[:whole] - torch.cat([acc5, tfin5], 1)).abs().max())
+        diff_p = float((ps[:whole] - psum).abs().max())
+        eq_f = torch.equal(st[:whole], torch.cat([acc5, tfin5], 1))
+        eq_p = torch.equal(ps[:whole], psum)
+        pad_ok = (bool((st[whole:, :5] == 0).all()) and bool((st[whole:, 5] == 1.0).all())
+                  and bool((ps[whole:] == 0).all()))
+        e_d, ok_d = max_violation(dsum, dpacked, **GRAD_TOL)
+        print(f"[{tag}] W={world} stitched against the whole-grid launch: kernel 1 "
+              f"{'bit-equal' if eq_f else f'differs by up to {diff_f:.3e}'}, kernel 3's "
+              f"partials {'bit-equal' if eq_p else f'differ by up to {diff_p:.3e}'}, kernel 2's "
+              f"summed dpacked max abs err {e_d:.3e} ({'ok' if ok_d else 'FAIL'}); the "
+              f"{n_pad - whole} pad tiles {'acc 0, T 1, partials 0' if pad_ok else 'WRONG'}",
+              flush=True)
+        if not (ok_d and pad_ok and max_violation(st[:whole], torch.cat([acc5, tfin5], 1),
+                                                   **IMG_TOL)[1]
+                and max_violation(ps[:whole], psum, atol=PARTIAL_ATOL * torch.cat(asums)[:whole],
+                                  rtol=GRAD_TOL["rtol"])[1]):
+            fail(f"{tag}: W={world}: the stitched windows disagree with the whole grid")
+        for k in out:
+            out[k][f"W{world}"] = dict(res[k], ms_sum=sum(res[k]["ms"]),
+                                       ms_max=max(res[k]["ms"]))
+        out["composite_fwd"][f"W{world}"]["bit_equal_to_whole"] = eq_f
+        out["composite_pose_bwd"][f"W{world}"]["bit_equal_to_whole"] = eq_p
+        out["composite_bwd"][f"W{world}"]["summed_err_to_whole"] = e_d
+    return out
+
+
+MESH_RANKS = 2          # phase 14: ranks sharing the one card
+
+
+def run_mesh(scene_npz, outdir, main_cfg):
+    """Phase 14: `torchrun --standalone --nproc_per_node 2` runs run_golden
+    on configs/synthetic_tum.yml with tpu.mesh_devices 2 (the sharded map:
+    each rank its rows and its tile window, the two ranks sharing the card
+    over gloo) on phase 4's N_FRAMES frames of its scene, so the two runs
+    track the same frames. Gates: the run exits 0; ATE < 0.03 m and PSNR >
+    17 dB; within 5e-3 m ATE and 1 dB mean PSNR (over the same eval frames)
+    of phase 4's run; both ranks' poses bit-equal (each rank prints a hash
+    of its pose list); every kernel launched over a window on each rank.
+    Prints the camera-centre distance between the two runs' poses, frame by
+    frame. Returns each rank's windowed launch counts."""
+    from mm3dgs_slam_torch.eval.ate import camera_centers
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(MESH_RANKS), "-m", "mm3dgs_slam_torch.scripts.run_golden",
+           "--config", str(ROOT / "configs" / "synthetic_tum.yml"), "--scene", scene_npz,
+           "--outdir", str(outdir), "--frames", str(N_FRAMES),
+           "--mesh-devices", str(MESH_RANKS)]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith(("[mesh]", "[rank "))]
+    for ln in lines:
+        print(f"[mesh2] {ln}", flush=True)
+    if p.returncode != 0:
+        print(p.stdout[-4000:], p.stderr[-8000:], sep="\n", file=sys.stderr)
+        fail(f"mesh2: torchrun exited {p.returncode}")
+    ranks = {}
+    for ln in lines:
+        if ln.startswith("[rank "):
+            r = int(ln[6:ln.index("/")])
+            ranks[r] = json.loads(ln[ln.index("{"):])
+    if sorted(ranks) != list(range(MESH_RANKS)):
+        fail(f"mesh2: rank summaries {sorted(ranks)}")
+    r = np.load(Path(outdir) / "results.npz", allow_pickle=True)
+    m = np.load(Path(main_cfg["outputdir"]) / "results.npz", allow_pickle=True)
+    if r["pose_gt"].shape != m["pose_gt"].shape or not np.array_equal(r["pose_gt"],
+                                                                      m["pose_gt"]):
+        fail("mesh2: phase 14 and phase 4 did not run the same frames")
+    ate, psnr = float(r["ate_rmse"]), float(np.mean(r["psnr_list"]))
+    ate_main, psnr_main = float(m["ate_rmse"]), float(np.mean(m["psnr_list"]))
+    apart = np.linalg.norm(camera_centers(r["pose_est"])[:, 4:]
+                           - camera_centers(m["pose_est"])[:, 4:], axis=1)
+    hashes = {ranks[k]["pose_sha1"] for k in ranks}
+    print(f"[mesh2] {MESH_RANKS} ranks on one card, {N_FRAMES} frames: ATE {ate:.6f} m "
+          f"(phase 4 {ate_main:.6f}), PSNR {psnr:.3f} dB over {len(r['psnr_list'])} eval "
+          f"frames (phase 4 {psnr_main:.3f}); camera centres apart from phase "
+          f"4's by frame {[float(f'{d:.3g}') for d in apart]} m; gaussians by rank "
+          f"{[ranks[k]['gaussians'] for k in sorted(ranks)]}; ms per tracking / mapping "
+          f"iteration by rank {[(ranks[k]['ms_track'], ranks[k]['ms_map']) for k in sorted(ranks)]}"
+          f"; windowed launches by rank {[ranks[k]['launches_windowed'] for k in sorted(ranks)]};"
+          f" poses bit-equal across ranks: {len(hashes) == 1}; torchrun wall {wall:.1f} s",
+          flush=True)
+    if len(hashes) != 1:
+        fail(f"mesh2: the ranks' poses differ ({hashes})")
+    if not all(v > 0 for k in ranks for v in ranks[k]["launches_windowed"].values()):
+        fail("mesh2: a kernel was never launched over a window")
+    if not (ate < 0.03 and psnr > 17.0):
+        fail(f"mesh2: quality gates: ATE {ate} (< 0.03), PSNR {psnr} (> 17)")
+    if not (abs(ate - ate_main) < 5e-3 and abs(psnr - psnr_main) < 1.0):
+        fail(f"mesh2: against phase 4: ATE {ate} vs {ate_main}, PSNR {psnr} vs {psnr_main}")
+    return {f"mesh2_rank{k}": ranks[k]["launches_windowed"] for k in sorted(ranks)}
 
 
 def check_ba_chain(scene, nc=3, tag="check"):
@@ -912,6 +1113,12 @@ def main() -> int:
     scene = check_scene((f0, f1), RenderSettings(cam=cam), device)
     rows = check_kernels(scene)
     ba_rel = check_ba_chain(scene)
+    # phase 3d: the three kernels over the tile windows of 2 and 7 ranks
+    t0 = time.perf_counter()
+    windowed = check_windows(scene)
+    for k in rows:
+        k["windowed_640x480"] = windowed[k["name"]]
+    print(f"[check 3d] {time.perf_counter() - t0:.1f} s", flush=True)
     del scene
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -977,6 +1184,11 @@ def main() -> int:
         check_decomp(main_slam, cfg)
         main_rebins = rebins[0]
         main_ms_it = float(np.load(Path(cfg["outputdir"]) / "results.npz")["avg_mapping_it_time"])
+
+        # phase 14: the sharded map on two ranks sharing the card, under torchrun
+        t0 = time.perf_counter()
+        mesh_paths = run_mesh(scene_npz, Path(tmp) / "out_mesh2", cfg)
+        print(f"[mesh2] phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
         # phase 5: the UT-MM path (IMU seed, Pearson terms, 640x330)
         utmm, slam, _ = drive(run, kernels, "utmm", ucfg, ate_max=0.03, psnr_min=17.0)
@@ -1062,6 +1274,7 @@ def main() -> int:
     for k in rows:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+        k["launches_windowed_by_path"] = {p: c[k["name"]] for p, c in mesh_paths.items()}
         if k["name"] == "composite_pose_bwd":
             k["nc6"]["launches_splatam"] = s_by_nc[k["name"]].get(6, 0)
         if k["name"] == "composite_bwd":

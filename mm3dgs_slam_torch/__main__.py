@@ -3,6 +3,13 @@
     python -m mm3dgs_slam_torch --config configs/synthetic_tum.yml [--device cpu]
 
 Exits non-zero when the run failed (the map and results are saved anyway).
+A config with ``tpu.mesh_devices: W > 1`` (the sharded map) is launched as
+W ranks:
+
+    torchrun --standalone --nproc_per_node W -m mm3dgs_slam_torch --config <yml>
+
+where a failed rank ends its process with the error and torchrun stops the
+others.
 """
 from __future__ import annotations
 

@@ -2,14 +2,16 @@
 loaded into a plain nested dict with the required keys validated and the
 optional ones defaulted, plus the port's device resolution.
 
-Of the `tpu:` block the port honours only the keys that change results:
-`rebin_every`, `map_rebin_every`, `group_mapping_schedule`,
+Of the `tpu:` block the port honours the keys that change results or the
+layout: `rebin_every`, `map_rebin_every`, `group_mapping_schedule`,
 `max_new_per_frame`, `imu_pad` (the IMU seed integrates at most that many
-samples per frame; the rest are dropped, as in the JAX package) and
+samples per frame; the rest are dropped, as in the JAX package),
 `prefetch` (the frame loop decodes the next frame in a background thread;
-on by default). The keys that size or tune TPU buffers (`pair_cap`,
-`max_per_tile`, `chunk`, `max_tiles_per_gaussian`, `bin_*`, `pl_*`,
-`use_pallas`, `grad_bf16`, `mesh_devices`, `check_overflow`,
+on by default) and `mesh_devices` (W > 1 shards the map over W ranks
+started by ``torchrun --nproc_per_node W``; another world size raises
+ValueError; slam/slam.py, parallel/). The keys that size or tune TPU
+buffers (`pair_cap`, `max_per_tile`, `chunk`, `max_tiles_per_gaussian`,
+`bin_*`, `pl_*`, `use_pallas`, `grad_bf16`, `check_overflow`,
 `track_tiles`, `pose_kernel`, `map_tiles`) are read and ignored: binning is
 sized exactly per frame and the fast paths (tile-layout losses, the fused
 pose backward) are always taken. `cfg["device"]` is ignored too; the device
@@ -53,6 +55,7 @@ _DEFAULTS: dict[str, Any] = {
         "map_rebin_every": 1,          # mapping binning refresh cadence
         "group_mapping_schedule": False,  # contiguous per-keyframe blocks
         "imu_pad": 64,                 # IMU samples integrated per frame, at most
+        "mesh_devices": 1,             # ranks the map is sharded over
     },
 }
 

@@ -59,7 +59,8 @@ __global__ void __launch_bounds__(PIX)
 composite_bwd_kernel(const float* __restrict__ packed, int ld,
                      const int* __restrict__ pair_gauss,
                      const int* __restrict__ tile_start,
-                     const int* __restrict__ tile_count, int tiles_x,
+                     const int* __restrict__ tile_count, int tile_lo,
+                     int n_tiles, int tiles_x,
                      const float* __restrict__ acc,
                      const float* __restrict__ tfin,
                      const float* __restrict__ dacc,
@@ -72,24 +73,26 @@ composite_bwd_kernel(const float* __restrict__ packed, int ld,
   __shared__ unsigned char s_mask[PIX];
   __shared__ int s_g[PIX];
 
-  const int tile = blockIdx.x;
+  const int lt = blockIdx.x;  // window-local tile (see composite_fwd.cu)
+  const int tile = tile_lo + lt;
+  if (tile >= n_tiles) return;  // the window's pad: no pairs, no gradient
   const int lane = threadIdx.x % 32;
   const int pix = tile_pixel(threadIdx.x / 32, lane);
   const int x0 = (tile % tiles_x) * TILE, y0 = (tile / tiles_x) * TILE;
   const float px = (float)(x0 + pix % TILE);
   const float py = (float)(y0 + pix / TILE);
-  const int start = tile_start[tile];
-  const int count = tile_count[tile];
+  const int start = tile_start[lt];
+  const int count = tile_count[lt];
 
   float dC[NC];
   float cdc = 0.0f;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const size_t o = ((size_t)tile * NC + c) * PIX + pix;
+    const size_t o = ((size_t)lt * NC + c) * PIX + pix;
     dC[c] = dacc[o];
     cdc += acc[o] * dC[c];
   }
-  const float tail = dtfin[(size_t)tile * PIX + pix] * tfin[(size_t)tile * PIX + pix];
+  const float tail = dtfin[(size_t)lt * PIX + pix] * tfin[(size_t)lt * PIX + pix];
 
   float T = 1.0f;
   float A = 0.0f;
@@ -142,29 +145,31 @@ composite_bwd_kernel(const float* __restrict__ packed, int ld,
 
 template <int NC>
 static void launch(const float* packed, int ld, const int* pair_gauss,
-                   const int* tile_start, const int* tile_count, int n_tiles,
-                   int tiles_x, const float* acc, const float* tfin,
-                   const float* dacc, const float* dtfin, float* dpacked,
-                   unsigned long long* work, cudaStream_t s) {
-  composite_bwd_kernel<NC><<<n_tiles, PIX, 0, s>>>(
-      packed, ld, pair_gauss, tile_start, tile_count, tiles_x, acc, tfin,
-      dacc, dtfin, dpacked, work);
+                   const int* tile_start, const int* tile_count, int tile_lo,
+                   int n_local, int n_tiles, int tiles_x, const float* acc,
+                   const float* tfin, const float* dacc, const float* dtfin,
+                   float* dpacked, unsigned long long* work, cudaStream_t s) {
+  composite_bwd_kernel<NC><<<n_local, PIX, 0, s>>>(
+      packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_tiles, tiles_x,
+      acc, tfin, dacc, dtfin, dpacked, work);
 }
 
-// dpacked [N, 16] must be zeroed and 16-B aligned by the caller; packed and
-// work as for mm3dgs_composite_fwd. Returns cudaGetLastError().
+// dpacked [N, 16] must be zeroed and 16-B aligned by the caller; the
+// window's tiles add into the rows of every Gaussian they walk. packed, the
+// window and work as for mm3dgs_composite_fwd. Returns cudaGetLastError().
 extern "C" int mm3dgs_composite_bwd(const float* packed, int ld,
                                     const int* pair_gauss,
                                     const int* tile_start,
-                                    const int* tile_count, int n_tiles,
+                                    const int* tile_count, int tile_lo,
+                                    int n_local, int n_tiles,
                                     int tiles_x, int nc, const float* acc,
                                     const float* tfin, const float* dacc,
                                     const float* dtfin, float* dpacked,
                                     unsigned long long* work, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (nc) {  // mapping: nc 3, or 4 with the depth-estimate loss
-    case 3: launch<3>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, work, s); break;
-    case 4: launch<4>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, work, s); break;
+    case 3: launch<3>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, work, s); break;
+    case 4: launch<4>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, work, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -19,6 +19,11 @@
 // flow, two pairs at a time so that their exp and alpha overlap. Rows are
 // read as float4s. The per-pixel arithmetic is the reference walk's, op for
 // op, so acc and tfin do not depend on the cull.
+//
+// Tile window (the TPU kernel's `tile_lo` scalar, for the tile-sharded
+// render): block b walks global tile tile_lo + b with the window-local
+// segment b and writes output row b; a block past the grid (the last
+// window's pad) writes acc 0 and T 1 and returns.
 #include "composite_common.cuh"
 
 using namespace mm3dgs;
@@ -28,19 +33,27 @@ __global__ void __launch_bounds__(PIX)
 composite_fwd_kernel(const float* __restrict__ packed, int ld,
                      const int* __restrict__ pair_gauss,
                      const int* __restrict__ tile_start,
-                     const int* __restrict__ tile_count, int tiles_x,
+                     const int* __restrict__ tile_count, int tile_lo,
+                     int n_tiles, int tiles_x,
                      float* __restrict__ acc, float* __restrict__ tfin,
                      unsigned long long* __restrict__ work) {
   __shared__ float4 s_row[NV][PIX];
   __shared__ unsigned char s_mask[PIX];
 
-  const int tile = blockIdx.x;
+  const int lt = blockIdx.x;  // window-local tile: the bins' and outputs' row
+  const int tile = tile_lo + lt;
   const int pix = tile_pixel(threadIdx.x / 32, threadIdx.x % 32);
+  if (tile >= n_tiles) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[((size_t)lt * NC + c) * PIX + pix] = 0.0f;
+    tfin[(size_t)lt * PIX + pix] = 1.0f;
+    return;
+  }
   const int x0 = (tile % tiles_x) * TILE, y0 = (tile / tiles_x) * TILE;
   const float px = (float)(x0 + pix % TILE);
   const float py = (float)(y0 + pix / TILE);
-  const int start = tile_start[tile];
-  const int count = tile_count[tile];
+  const int start = tile_start[lt];
+  const int count = tile_count[lt];
 
   float T = 1.0f;
   int done = 0, kept = 0, walked = 0;
@@ -68,37 +81,40 @@ composite_fwd_kernel(const float* __restrict__ packed, int ld,
     });
   }
 #pragma unroll
-  for (int c = 0; c < NC; ++c) acc[((size_t)tile * NC + c) * PIX + pix] = a[c];
-  tfin[(size_t)tile * PIX + pix] = T;
+  for (int c = 0; c < NC; ++c) acc[((size_t)lt * NC + c) * PIX + pix] = a[c];
+  tfin[(size_t)lt * PIX + pix] = T;
   add_work(work, kept, walked);
 }
 
 template <int NC>
 static void launch(const float* packed, int ld, const int* pair_gauss,
-                   const int* tile_start, const int* tile_count, int n_tiles,
-                   int tiles_x, float* acc, float* tfin, unsigned long long* work,
-                   cudaStream_t s) {
-  composite_fwd_kernel<NC><<<n_tiles, PIX, 0, s>>>(
-      packed, ld, pair_gauss, tile_start, tile_count, tiles_x, acc, tfin, work);
+                   const int* tile_start, const int* tile_count, int tile_lo,
+                   int n_local, int n_tiles, int tiles_x, float* acc, float* tfin,
+                   unsigned long long* work, cudaStream_t s) {
+  composite_fwd_kernel<NC><<<n_local, PIX, 0, s>>>(
+      packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_tiles, tiles_x, acc,
+      tfin, work);
 }
 
-// packed rows are 16-B aligned with ld % 4 == 0; work is null or two
-// counters the kernel adds to. Returns cudaGetLastError() after the launch
-// (0 = launched).
+// packed rows are 16-B aligned with ld % 4 == 0; tile_start/tile_count,
+// acc and tfin have n_local rows, for the global tiles from tile_lo on of a
+// grid of n_tiles; work is null or two counters the kernel adds to. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int mm3dgs_composite_fwd(const float* packed, int ld,
                                     const int* pair_gauss,
                                     const int* tile_start,
-                                    const int* tile_count, int n_tiles,
+                                    const int* tile_count, int tile_lo,
+                                    int n_local, int n_tiles,
                                     int tiles_x, int nc, float* acc,
                                     float* tfin, unsigned long long* work,
                                     void* stream) {
   // mapping: nc 3 (4 with the depth-estimate loss); tracking 5; eval 6
   cudaStream_t s = (cudaStream_t)stream;
   switch (nc) {
-    case 3: launch<3>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, work, s); break;
-    case 4: launch<4>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, work, s); break;
-    case 5: launch<5>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, work, s); break;
-    case 6: launch<6>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, work, s); break;
+    case 3: launch<3>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, work, s); break;
+    case 4: launch<4>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, work, s); break;
+    case 5: launch<5>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, work, s); break;
+    case 6: launch<6>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, work, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

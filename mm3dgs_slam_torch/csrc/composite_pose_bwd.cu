@@ -46,7 +46,8 @@ __global__ void __launch_bounds__(PIX, 4)
 composite_pose_bwd_kernel(const float* __restrict__ packed, int ld,
                           const int* __restrict__ pair_gauss,
                           const int* __restrict__ tile_start,
-                          const int* __restrict__ tile_count, int tiles_x,
+                          const int* __restrict__ tile_count, int tile_lo,
+                          int n_tiles, int tiles_x,
                           const float* __restrict__ acc,
                           const float* __restrict__ tfin,
                           const float* __restrict__ dacc,
@@ -61,24 +62,29 @@ composite_pose_bwd_kernel(const float* __restrict__ packed, int ld,
   __shared__ int s_g[PIX];
   __shared__ float s_red[NWARP][12];
 
-  const int tile = blockIdx.x;
+  const int lt = blockIdx.x;  // window-local tile (see composite_fwd.cu)
+  const int tile = tile_lo + lt;
   const int t = threadIdx.x;
+  if (tile >= n_tiles) {  // the window's pad: zero partials
+    if (t < 12) psum[(size_t)lt * 12 + t] = 0.0f;
+    return;
+  }
   const int pix = tile_pixel(t / 32, t % 32);
   const int x0 = (tile % tiles_x) * TILE, y0 = (tile / tiles_x) * TILE;
   const float px = (float)(x0 + pix % TILE);
   const float py = (float)(y0 + pix / TILE);
-  const int start = tile_start[tile];
-  const int count = tile_count[tile];
+  const int start = tile_start[lt];
+  const int count = tile_count[lt];
 
   float dC[NC];
   float cdc = 0.0f;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const size_t o = ((size_t)tile * NC + c) * PIX + pix;
+    const size_t o = ((size_t)lt * NC + c) * PIX + pix;
     dC[c] = dacc[o];
     cdc += acc[o] * dC[c];
   }
-  const float tail = dtfin[(size_t)tile * PIX + pix] * tfin[(size_t)tile * PIX + pix];
+  const float tail = dtfin[(size_t)lt * PIX + pix] * tfin[(size_t)lt * PIX + pix];
 
   float s[12];
 #pragma unroll
@@ -146,35 +152,36 @@ composite_pose_bwd_kernel(const float* __restrict__ packed, int ld,
     float v = 0.0f;
 #pragma unroll
     for (int w = 0; w < NWARP; ++w) v += s_red[w][t];
-    psum[(size_t)tile * 12 + t] = v;
+    psum[(size_t)lt * 12 + t] = v;
   }
   add_work(work, kept, walked);
 }
 
 template <int NC>
 static void launch(const float* packed, int ld, const int* pair_gauss,
-                   const int* tile_start, const int* tile_count, int n_tiles,
-                   int tiles_x, const float* acc, const float* tfin,
-                   const float* dacc, const float* dtfin, float fx, float fy,
-                   float bx, float by, float* psum, unsigned long long* work,
-                   cudaStream_t s) {
-  composite_pose_bwd_kernel<NC><<<n_tiles, PIX, 0, s>>>(
-      packed, ld, pair_gauss, tile_start, tile_count, tiles_x, acc, tfin,
-      dacc, dtfin, fx, fy, bx, by, psum, work);
+                   const int* tile_start, const int* tile_count, int tile_lo,
+                   int n_local, int n_tiles, int tiles_x, const float* acc,
+                   const float* tfin, const float* dacc, const float* dtfin,
+                   float fx, float fy, float bx, float by, float* psum,
+                   unsigned long long* work, cudaStream_t s) {
+  composite_pose_bwd_kernel<NC><<<n_local, PIX, 0, s>>>(
+      packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_tiles, tiles_x,
+      acc, tfin, dacc, dtfin, fx, fy, bx, by, psum, work);
 }
 
-// packed is [N, ld] with ld >= 28; packed and work as for
-// mm3dgs_composite_fwd. Returns cudaGetLastError().
+// packed is [N, ld] with ld >= 28; psum has n_local rows; packed, the
+// window and work as for mm3dgs_composite_fwd. Returns cudaGetLastError().
 extern "C" int mm3dgs_composite_pose_bwd(
     const float* packed, int ld, const int* pair_gauss, const int* tile_start,
-    const int* tile_count, int n_tiles, int tiles_x, int nc, const float* acc,
+    const int* tile_count, int tile_lo, int n_local, int n_tiles, int tiles_x,
+    int nc, const float* acc,
     const float* tfin, const float* dacc, const float* dtfin, float fx,
     float fy, float bx, float by, float* psum, unsigned long long* work,
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (nc) {  // tracking: nc 5; render_tiles_pose's default: 6
-    case 5: launch<5>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, dacc, dtfin, fx, fy, bx, by, psum, work, s); break;
-    case 6: launch<6>(packed, ld, pair_gauss, tile_start, tile_count, n_tiles, tiles_x, acc, tfin, dacc, dtfin, fx, fy, bx, by, psum, work, s); break;
+    case 5: launch<5>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, dacc, dtfin, fx, fy, bx, by, psum, work, s); break;
+    case 6: launch<6>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, dacc, dtfin, fx, fy, bx, by, psum, work, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

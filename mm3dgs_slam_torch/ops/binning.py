@@ -7,6 +7,12 @@
   3. one `torch.sort` on the key tile * N + depth_rank,
   4. per-tile segment bounds by `searchsorted` on the sorted keys.
 
+A tile window (`tile_lo`, `n_local`: JAX `build_bins(..., tile_lo=,
+n_local=)`) bins only the global tiles [tile_lo, tile_lo + n_local), with
+window-local `tile_start`/`tile_count`; each tile's pair list is the one
+the whole-image build gives, and tiles past the grid (the last window's
+pad) are empty.
+
 The buffers hold exactly the live pairs: no static caps, no overflow, no
 slot tables and no alignment padding (those exist for the TPU's static
 shapes). Binning is selection, not differentiated.
@@ -23,8 +29,8 @@ from .projection import ProjectedGaussians
 
 class TileBins(NamedTuple):
     pair_gauss: torch.Tensor  # [P] int32 gaussian row, (tile, depth)-sorted
-    tile_start: torch.Tensor  # [n_tiles] int32 segment start into pair_gauss
-    tile_count: torch.Tensor  # [n_tiles] int32 segment length
+    tile_start: torch.Tensor  # [n_local] int32 segment start into pair_gauss
+    tile_count: torch.Tensor  # [n_local] int32 segment length
 
 
 def gaussian_tile_rect(xy, radius, tiles_x: int, tiles_y: int):
@@ -92,8 +98,13 @@ def tile_alpha_keep(tx, ty, xy, conic, tau) -> torch.Tensor:
 
 
 @torch.no_grad()
-def build_bins(proj: ProjectedGaussians, cam: Camera) -> TileBins:
-    """Bin projected Gaussians into per-tile depth-sorted pair lists."""
+def build_bins(proj: ProjectedGaussians, cam: Camera, tile_lo: int = 0,
+               n_local: int | None = None) -> TileBins:
+    """Bin projected Gaussians into per-tile depth-sorted pair lists, over
+    the whole grid or the window of `n_local` tiles from global tile
+    `tile_lo` on."""
+    if n_local is None:
+        n_local = cam.n_tiles - tile_lo
     xy = proj.xy.detach()
     dev = xy.device
     n = xy.shape[0]
@@ -107,6 +118,10 @@ def build_bins(proj: ProjectedGaussians, cam: Camera) -> TileBins:
     rank[order] = torch.arange(n, device=dev)
 
     x0, x1, y0, y1 = gaussian_tile_rect(xy, radius, cam.tiles_x, cam.tiles_y)
+    # only the tile rows the window touches are expanded
+    row_lo = tile_lo // cam.tiles_x
+    row_hi = min((tile_lo + n_local - 1) // cam.tiles_x + 1, cam.tiles_y)
+    y0, y1 = torch.clamp(y0, row_lo, row_hi), torch.clamp(y1, row_lo, row_hi)
     rect_w = torch.clamp(x1 - x0, min=0)
     count = torch.where(live, rect_w * torch.clamp(y1 - y0, min=0), torch.zeros_like(rect_w))
     gid = torch.repeat_interleave(torch.arange(n, device=dev), count)
@@ -119,12 +134,13 @@ def build_bins(proj: ProjectedGaussians, cam: Camera) -> TileBins:
 
     conic = proj.conic.detach()[gid]
     tau = alpha_tau(op[gid])
-    keep = tile_alpha_keep(tx, ty, xy[gid], conic, tau)
-    gid, tile = gid[keep], (ty * cam.tiles_x + tx)[keep]
+    tile = ty * cam.tiles_x + tx - tile_lo
+    keep = tile_alpha_keep(tx, ty, xy[gid], conic, tau) & (tile >= 0) & (tile < n_local)
+    gid, tile = gid[keep], tile[keep]
 
     keys, perm = torch.sort(tile * n + rank[gid])
     bounds = torch.searchsorted(
-        keys, torch.arange(cam.n_tiles + 1, device=dev, dtype=torch.int64) * n)
+        keys, torch.arange(n_local + 1, device=dev, dtype=torch.int64) * n)
     return TileBins(
         pair_gauss=gid[perm].to(torch.int32),
         tile_start=bounds[:-1].to(torch.int32),

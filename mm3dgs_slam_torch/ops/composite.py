@@ -18,8 +18,21 @@ C = sum_j w_j f_j and A_j = sum_{k<=j} w_k (f_k . dC),
 
     dL/dalpha_j = T_j (f_j . dC) - ((C . dC) - A_j + dT_fin T_fin) / (1 - alpha_j).
 
+The second term is a difference of two sums that cancel behind a
+saturating layer, divided by up to 1 - 0.99, and the walk's thresholds
+(alpha >= 1/255, the stop) switch a pair on or off on a last-bit change of
+its alpha: on dense scenes two float32 evaluations in another order differ
+beyond any per-value tolerance. Float64 inputs give the float64 evaluation
+of the same formulas, which the card's tests hold both against.
+
 Layouts: `packed` rows [N, ld] (ld = 16, or 32 with the pose-Jacobian
 extension); acc channel-major [n_tiles, nc, 256]; tfin [n_tiles, 1, 256].
+
+Each function also walks a tile window (`tile_lo`, `n_local`; JAX
+`_composite_pallas_fwd(..., tile_lo, n_local)`): local tile t is global tile
+t + tile_lo, the bins are window-local (`binning.build_bins` with the same
+window) and the outputs have n_local rows; tiles past the grid (the last
+window's pad) give acc 0, T 1 and zero gradients.
 
 The kernels split a tile among 8 warps, each an 8x4 pixel box (warp w at
 column w % 2, row w // 2 of the boxes), and a warp looks only at the pairs
@@ -37,9 +50,13 @@ BOX_W, BOX_H = 8, 4                       # a warp's pixel box
 BOXES_X, N_BOXES = TILE // BOX_W, PIX // (BOX_W * BOX_H)
 
 
-def tile_pixel_coords(cam: Camera, device):
-    """[n_tiles, 256] float pixel x and y of every tile lane."""
-    t = torch.arange(cam.n_tiles, device=device)[:, None]
+def _window(cam: Camera, tile_lo: int, n_local: int | None) -> int:
+    return cam.n_tiles - tile_lo if n_local is None else n_local
+
+
+def tile_pixel_coords(cam: Camera, device, tile_lo: int = 0, n_local: int | None = None):
+    """[n_local, 256] float pixel x and y of every lane of the window's tiles."""
+    t = tile_lo + torch.arange(_window(cam, tile_lo, n_local), device=device)[:, None]
     p = torch.arange(PIX, device=device)[None, :]
     px = ((t % cam.tiles_x) * TILE + p % TILE).to(torch.float32)
     py = ((t // cam.tiles_x) * TILE + p // TILE).to(torch.float32)
@@ -65,9 +82,9 @@ def _alpha(row, px, py, valid):
     return dx, dy, expp, alpha, contribute
 
 
-def warp_box_origins(cam: Camera, device):
-    """[n_tiles, 8] float x and y of the first pixel of every warp's box."""
-    t = torch.arange(cam.n_tiles, device=device)[:, None]
+def warp_box_origins(cam: Camera, device, tile_lo: int = 0, n_local: int | None = None):
+    """[n_local, 8] float x and y of the first pixel of every warp's box."""
+    t = tile_lo + torch.arange(_window(cam, tile_lo, n_local), device=device)[:, None]
     w = torch.arange(N_BOXES, device=device)[None, :]
     x = (t % cam.tiles_x) * TILE + (w % BOXES_X) * BOX_W
     y = (t // cam.tiles_x) * TILE + (w // BOXES_X) * BOX_H
@@ -87,7 +104,8 @@ WORK_KEYS = ("tested", "used", "stops", "pairs_used", "pairs_walked", "warp_pair
 
 @torch.no_grad()
 def composite_fwd_plain(packed, pair_gauss, tile_start, tile_count,
-                        cam: Camera, nc: int, count_work: bool = False):
+                        cam: Camera, nc: int, count_work: bool = False,
+                        tile_lo: int = 0, n_local: int | None = None):
     """Kernel 1's plain version: (acc [T, nc, 256], tfin [T, 1, 256]).
 
     `count_work` also returns the work of the walk, a dict of ints:
@@ -101,14 +119,14 @@ def composite_fwd_plain(packed, pair_gauss, tile_start, tile_count,
     walk; `warp_pairs`, the (tile, pair, warp box)s among the walked ones
     that `box_alpha_keep` keeps, which the kernels count in `work[0]`."""
     dev = packed.device
-    px, py = tile_pixel_coords(cam, dev)
-    n_tiles = cam.n_tiles
-    T = torch.ones((n_tiles, PIX), dtype=torch.float32, device=dev)
+    px, py = tile_pixel_coords(cam, dev, tile_lo, n_local)
+    n_tiles = px.shape[0]
+    T = torch.ones((n_tiles, PIX), dtype=packed.dtype, device=dev)
     done = torch.zeros((n_tiles, PIX), dtype=torch.bool, device=dev)
-    acc = torch.zeros((n_tiles, nc, PIX), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_tiles, nc, PIX), dtype=packed.dtype, device=dev)
     work = torch.zeros(len(WORK_KEYS), dtype=torch.int64, device=dev)
     if count_work:
-        bx, by = (o.reshape(-1) for o in warp_box_origins(cam, dev))
+        bx, by = (o.reshape(-1) for o in warp_box_origins(cam, dev, tile_lo, n_local))
     n_ranks = int(tile_count.max()) if n_tiles else 0
     for r in range(n_ranks):
         valid, g, row = _gather_rank(packed, pair_gauss, tile_start, tile_count, r)
@@ -137,18 +155,18 @@ def composite_fwd_plain(packed, pair_gauss, tile_start, tile_count,
 
 
 def _replay(packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc,
-            dtfin, cam: Camera, nc: int):
+            dtfin, cam: Camera, nc: int, tile_lo: int, n_local: int | None):
     """The backward walk: per depth rank, yields (valid [T], g [T],
     row [T, ld], dx, dy, dpower, dop, w), the last four per pixel
     [T, 256]; dpower = dL/dpower and dop = dL/dop at each pixel."""
     dev = packed.device
-    px, py = tile_pixel_coords(cam, dev)
-    n_tiles = cam.n_tiles
+    px, py = tile_pixel_coords(cam, dev, tile_lo, n_local)
+    n_tiles = px.shape[0]
     cdc = torch.sum(acc * dacc, dim=1)               # (C . dC) per pixel
     tail = dtfin[:, 0] * tfin[:, 0]                  # dT_fin * T_fin
-    T = torch.ones((n_tiles, PIX), dtype=torch.float32, device=dev)
+    T = torch.ones((n_tiles, PIX), dtype=packed.dtype, device=dev)
     done = torch.zeros((n_tiles, PIX), dtype=torch.bool, device=dev)
-    A = torch.zeros((n_tiles, PIX), dtype=torch.float32, device=dev)
+    A = torch.zeros((n_tiles, PIX), dtype=packed.dtype, device=dev)
     zero = torch.zeros_like(T)
     n_ranks = int(tile_count.max()) if n_tiles else 0
     for r in range(n_ranks):
@@ -180,14 +198,15 @@ def _field_grads(row, dx, dy, dpower):
 
 @torch.no_grad()
 def composite_bwd_plain(packed, pair_gauss, tile_start, tile_count, acc, tfin,
-                        dacc, dtfin, cam: Camera, nc: int):
+                        dacc, dtfin, cam: Camera, nc: int, tile_lo: int = 0,
+                        n_local: int | None = None):
     """Kernel 2's plain version: dpacked [N, 16] (xy, conic, opacity and
     the nc walked feature columns; the others are exactly zero)."""
     n = packed.shape[0]
-    grads = torch.zeros((n, 6 + nc), dtype=torch.float32, device=packed.device)
+    grads = torch.zeros((n, 6 + nc), dtype=packed.dtype, device=packed.device)
     for valid, g, row, dx, dy, dpower, dop, w in _replay(
             packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc, dtfin,
-            cam, nc):
+            cam, nc, tile_lo, n_local):
         dfeat = torch.sum(w[:, None, :] * dacc, dim=2)           # [T, nc]
         per_pair = torch.cat([torch.sum(_field_grads(row, dx, dy, dpower), 2),
                               torch.sum(dop, 1, keepdim=True), dfeat], dim=1)
@@ -199,7 +218,8 @@ def composite_bwd_plain(packed, pair_gauss, tile_start, tile_count, acc, tfin,
 @torch.no_grad()
 def composite_pose_bwd_plain(packed32, pair_gauss, tile_start, tile_count, acc,
                              tfin, dacc, dtfin, cam: Camera, nc: int,
-                             abs_sum: bool = False):
+                             abs_sum: bool = False, tile_lo: int = 0,
+                             n_local: int | None = None):
     """Kernel 3's plain version: per-tile pose-gradient partials [T, 12]:
     [sum dmean_cam (3) | sum dmean_cam (x) mean_world (9, row-major)].
 
@@ -211,11 +231,12 @@ def composite_pose_bwd_plain(packed32, pair_gauss, tile_start, tile_count, acc,
     scales with the sum of their terms' magnitudes: `abs_sum` also returns
     that sum, sum |term| over the tile's pixel-pairs [T, 12]."""
     fx, fy, bx, by = cam.fx, cam.fy, cam.cx - 0.5, cam.cy - 0.5
-    psum = torch.zeros((cam.n_tiles, 12), dtype=torch.float32, device=packed32.device)
+    psum = torch.zeros((_window(cam, tile_lo, n_local), 12), dtype=packed32.dtype,
+                       device=packed32.device)
     asum = torch.zeros_like(psum)
     for valid, g, row, dx, dy, dpower, _dop, w in _replay(
             packed32, pair_gauss, tile_start, tile_count, acc, tfin, dacc, dtfin,
-            cam, nc):
+            cam, nc, tile_lo, n_local):
         dxy_x, dxy_y, dc0, dc1, dc2 = _field_grads(row, dx, dy, dpower).unbind(1)
         z = row[:, 9:10]
         dz = w * dacc[:, 3]

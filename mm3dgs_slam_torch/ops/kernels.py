@@ -18,6 +18,12 @@ on the card, to which they add the (tile, pair, warp box)s the cull keeps
 whatever nc) and the (warp, pair)s the warps walk (`work[1]`, fewer where a
 warp leaves a batch once all its pixels have stopped). The main path passes
 none.
+
+Every wrapper also takes a tile window (`tile_lo`, `n_local`, the
+tile-sharded render's: parallel/tile_sharded.py): the bins and the per-tile
+outputs then have n_local rows for the global tiles from tile_lo on, and the
+launch is also counted in `launches_windowed`. The whole grid (tile_lo 0,
+n_local n_tiles) is the default.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self.launches_by_nc: dict[int, int] = {}
+        self.launches_windowed = 0
         self.ptxas_log = ""
         self._fn = None
 
@@ -78,11 +85,16 @@ class Kernel:
             raise RuntimeError(f"CUDA kernel {self.name} was not launched: "
                                f"cudaError {err}")
         self.launches += 1
-        nc = args[7]   # every entry point takes nc eighth (_COMMON)
+        # every entry point starts with _COMMON's arguments
+        tile_lo, n_local, n_tiles, nc = args[5], args[6], args[7], args[9]
         self.launches_by_nc[nc] = self.launches_by_nc.get(nc, 0) + 1
+        if tile_lo != 0 or n_local != n_tiles:
+            self.launches_windowed += 1
 
 
-_COMMON = [_P, _I, _P, _P, _P, _I, _I, _I]  # packed, ld, pairs, tiles, nc
+# packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles,
+# tiles_x, nc
+_COMMON = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
 # The feature widths each kernel is compiled for, those its callers use:
 # mapping nc 3 (4 with the depth-estimate loss), tracking 5, evaluation 6.
 FWD_NC, BWD_NC, POSE_BWD_NC = (3, 4, 5, 6), (3, 4), (5, 6)
@@ -130,6 +142,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.launches_by_nc = {}
+        k.launches_windowed = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -138,6 +151,10 @@ def launch_counts() -> dict[str, int]:
 
 def launch_counts_by_nc() -> dict[str, dict[int, int]]:
     return {k.name: dict(sorted(k.launches_by_nc.items())) for k in KERNELS}
+
+
+def launch_counts_windowed() -> dict[str, int]:
+    return {k.name: k.launches_windowed for k in KERNELS}
 
 
 def _stream() -> int:
@@ -158,7 +175,16 @@ def _check_nc(kernel, nc, widths):
         raise ValueError(f"{kernel.name} is compiled for nc in {widths}, got {nc}")
 
 
-def _check_bins(packed, pair_gauss, tile_start, tile_count, cam, ld_min):
+def _window(cam: Camera, tile_lo: int, n_local: int | None) -> int:
+    """The window's tile count; a window may run past the grid (its pad)."""
+    n_local = cam.n_tiles - tile_lo if n_local is None else n_local
+    if tile_lo < 0 or n_local <= 0:
+        raise ValueError(f"tile window [{tile_lo}, {tile_lo} + {n_local}) of a grid of "
+                         f"{cam.n_tiles} tiles is empty or starts before it")
+    return n_local
+
+
+def _check_bins(packed, pair_gauss, tile_start, tile_count, n_local, ld_min):
     if packed.dim() != 2 or packed.shape[1] < ld_min:
         raise ValueError(f"packed: expected [N, >={ld_min}], got {tuple(packed.shape)}")
     _check("packed", packed, torch.float32)
@@ -167,8 +193,8 @@ def _check_bins(packed, pair_gauss, tile_start, tile_count, cam, ld_min):
         raise ValueError(f"packed: rows must be 16-B aligned (ld {packed.shape[1]}, "
                          f"address {packed.data_ptr():#x})")
     _check("pair_gauss", pair_gauss, torch.int32)
-    _check("tile_start", tile_start, torch.int32, (cam.n_tiles,))
-    _check("tile_count", tile_count, torch.int32, (cam.n_tiles,))
+    _check("tile_start", tile_start, torch.int32, (n_local,))
+    _check("tile_count", tile_count, torch.int32, (n_local,))
     dev = packed.device
     for name, t in (("pair_gauss", pair_gauss), ("tile_start", tile_start),
                     ("tile_count", tile_count)):
@@ -192,65 +218,71 @@ def _no_work_on_cpu(work):
 
 
 def composite_fwd(packed, pair_gauss, tile_start, tile_count, cam: Camera, nc: int,
-                  work=None):
-    """Kernel 1: (acc [n_tiles, nc, 256], tfin [n_tiles, 1, 256])."""
+                  work=None, tile_lo: int = 0, n_local: int | None = None):
+    """Kernel 1: (acc [n_local, nc, 256], tfin [n_local, 1, 256])."""
     if not packed.is_cuda:
         _no_work_on_cpu(work)
-        return plain.composite_fwd_plain(packed, pair_gauss, tile_start,
-                                         tile_count, cam, nc)
+        return plain.composite_fwd_plain(packed, pair_gauss, tile_start, tile_count, cam,
+                                         nc, tile_lo=tile_lo, n_local=n_local)
+    n_local = _window(cam, tile_lo, n_local)
     _check_nc(FWD, nc, FWD_NC)
-    _check_bins(packed, pair_gauss, tile_start, tile_count, cam, 6 + nc)
+    _check_bins(packed, pair_gauss, tile_start, tile_count, n_local, 6 + nc)
     work_ptr = _work_ptr(work, packed.device)
-    acc = torch.empty((cam.n_tiles, nc, PIX), dtype=torch.float32, device=packed.device)
-    tfin = torch.empty((cam.n_tiles, 1, PIX), dtype=torch.float32, device=packed.device)
+    acc = torch.empty((n_local, nc, PIX), dtype=torch.float32, device=packed.device)
+    tfin = torch.empty((n_local, 1, PIX), dtype=torch.float32, device=packed.device)
     FWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
-               tile_start.data_ptr(), tile_count.data_ptr(), cam.n_tiles, cam.tiles_x,
-               nc, acc.data_ptr(), tfin.data_ptr(), work_ptr, _stream())
+               tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local, cam.n_tiles,
+               cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(), work_ptr, _stream())
     return acc, tfin
 
 
-def _check_grads(cam, nc, acc, tfin, dacc, dtfin):
+def _check_grads(n_local, nc, acc, tfin, dacc, dtfin):
     for name, t, c in (("acc", acc, nc), ("dacc", dacc, nc), ("tfin", tfin, 1),
                        ("dtfin", dtfin, 1)):
-        _check(name, t, torch.float32, (cam.n_tiles, c, PIX))
+        _check(name, t, torch.float32, (n_local, c, PIX))
 
 
 def composite_bwd(packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc,
-                  dtfin, cam: Camera, nc: int, work=None):
-    """Kernel 2: dpacked [N, 16], the mapping backward."""
+                  dtfin, cam: Camera, nc: int, work=None, tile_lo: int = 0,
+                  n_local: int | None = None):
+    """Kernel 2: dpacked [N, 16], the mapping backward (of the window's tiles:
+    every row of packed, each the sum over the window's pairs)."""
     if not packed.is_cuda:
         _no_work_on_cpu(work)
-        return plain.composite_bwd_plain(packed, pair_gauss, tile_start,
-                                         tile_count, acc, tfin, dacc, dtfin,
-                                         cam, nc)
+        return plain.composite_bwd_plain(packed, pair_gauss, tile_start, tile_count, acc,
+                                         tfin, dacc, dtfin, cam, nc, tile_lo=tile_lo,
+                                         n_local=n_local)
+    n_local = _window(cam, tile_lo, n_local)
     _check_nc(BWD, nc, BWD_NC)
-    _check_bins(packed, pair_gauss, tile_start, tile_count, cam, 6 + nc)
-    _check_grads(cam, nc, acc, tfin, dacc, dtfin)
+    _check_bins(packed, pair_gauss, tile_start, tile_count, n_local, 6 + nc)
+    _check_grads(n_local, nc, acc, tfin, dacc, dtfin)
     work_ptr = _work_ptr(work, packed.device)
     dpacked = torch.zeros((packed.shape[0], 16), dtype=torch.float32, device=packed.device)
     BWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
-               tile_start.data_ptr(), tile_count.data_ptr(), cam.n_tiles, cam.tiles_x,
-               nc, acc.data_ptr(), tfin.data_ptr(), dacc.data_ptr(), dtfin.data_ptr(),
-               dpacked.data_ptr(), work_ptr, _stream())
+               tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local, cam.n_tiles,
+               cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(), dacc.data_ptr(),
+               dtfin.data_ptr(), dpacked.data_ptr(), work_ptr, _stream())
     return dpacked
 
 
 def composite_pose_bwd(packed32, pair_gauss, tile_start, tile_count, acc, tfin,
-                       dacc, dtfin, cam: Camera, nc: int, work=None):
-    """Kernel 3: per-tile pose-gradient partials [n_tiles, 12]."""
+                       dacc, dtfin, cam: Camera, nc: int, work=None, tile_lo: int = 0,
+                       n_local: int | None = None):
+    """Kernel 3: per-tile pose-gradient partials [n_local, 12]."""
     if not packed32.is_cuda:
         _no_work_on_cpu(work)
         return plain.composite_pose_bwd_plain(packed32, pair_gauss, tile_start,
-                                              tile_count, acc, tfin, dacc,
-                                              dtfin, cam, nc)
+                                              tile_count, acc, tfin, dacc, dtfin, cam,
+                                              nc, tile_lo=tile_lo, n_local=n_local)
+    n_local = _window(cam, tile_lo, n_local)
     _check_nc(POSE_BWD, nc, POSE_BWD_NC)
-    _check_bins(packed32, pair_gauss, tile_start, tile_count, cam, 28)
-    _check_grads(cam, nc, acc, tfin, dacc, dtfin)
+    _check_bins(packed32, pair_gauss, tile_start, tile_count, n_local, 28)
+    _check_grads(n_local, nc, acc, tfin, dacc, dtfin)
     work_ptr = _work_ptr(work, packed32.device)
-    psum = torch.empty((cam.n_tiles, 12), dtype=torch.float32, device=packed32.device)
+    psum = torch.empty((n_local, 12), dtype=torch.float32, device=packed32.device)
     POSE_BWD.launch(packed32.data_ptr(), packed32.shape[1], pair_gauss.data_ptr(),
-                    tile_start.data_ptr(), tile_count.data_ptr(), cam.n_tiles, cam.tiles_x,
-                    nc, acc.data_ptr(), tfin.data_ptr(), dacc.data_ptr(), dtfin.data_ptr(),
-                    cam.fx, cam.fy, cam.cx - 0.5, cam.cy - 0.5, psum.data_ptr(),
-                    work_ptr, _stream())
+                    tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local,
+                    cam.n_tiles, cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(),
+                    dacc.data_ptr(), dtfin.data_ptr(), cam.fx, cam.fy, cam.cx - 0.5,
+                    cam.cy - 0.5, psum.data_ptr(), work_ptr, _stream())
     return psum

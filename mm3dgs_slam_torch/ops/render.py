@@ -13,7 +13,9 @@ configs (pipeline.transform_means_python, TUM.yml:28 / UTMM.yml:31):
 Both backwards are `torch.autograd.Function`s over the kernels in
 `ops/kernels.py`: `composite_packed` (kernel 1 forward, kernel 2 backward)
 differentiates the packed rows; `render_tiles_pose` (kernel 1 forward,
-kernel 3 backward) differentiates only the pose.
+kernel 3 backward) differentiates only the pose. Both also walk a tile
+window (`tile_lo`, `n_local`) for the tile-sharded render
+(parallel/tile_sharded.py).
 """
 from __future__ import annotations
 
@@ -123,14 +125,16 @@ def background(rs: RenderSettings, device=None, channels: int = 6):
 
 
 class _CompositePacked(torch.autograd.Function):
-    """packed [N, 16] -> (acc, tfin); backward = kernel 2 (dpacked)."""
+    """packed [N, 16] -> (acc, tfin) of a tile window; backward = kernel 2
+    (dpacked)."""
 
     @staticmethod
-    def forward(ctx, packed, pair_gauss, tile_start, tile_count, cam, nc):
+    def forward(ctx, packed, pair_gauss, tile_start, tile_count, cam, nc, tile_lo, n_local):
         packed = packed.contiguous()
-        acc, tfin = kernels.composite_fwd(packed, pair_gauss, tile_start, tile_count, cam, nc)
+        acc, tfin = kernels.composite_fwd(packed, pair_gauss, tile_start, tile_count, cam, nc,
+                                          tile_lo=tile_lo, n_local=n_local)
         ctx.save_for_backward(packed, pair_gauss, tile_start, tile_count, acc, tfin)
-        ctx.cam, ctx.nc = cam, nc
+        ctx.cam, ctx.nc, ctx.window = cam, nc, (tile_lo, n_local)
         return acc, tfin
 
     @staticmethod
@@ -138,16 +142,20 @@ class _CompositePacked(torch.autograd.Function):
         packed, pair_gauss, tile_start, tile_count, acc, tfin = ctx.saved_tensors
         dacc = torch.zeros_like(acc) if dacc is None else dacc.contiguous()
         dtfin = torch.zeros_like(tfin) if dtfin is None else dtfin.contiguous()
+        tile_lo, n_local = ctx.window
         dpacked = kernels.composite_bwd(packed, pair_gauss, tile_start, tile_count,
-                                        acc, tfin, dacc, dtfin, ctx.cam, ctx.nc)
-        return dpacked, None, None, None, None, None
+                                        acc, tfin, dacc, dtfin, ctx.cam, ctx.nc,
+                                        tile_lo=tile_lo, n_local=n_local)
+        return dpacked, None, None, None, None, None, None, None
 
 
-def composite_packed(packed, bins: TileBins, cam: Camera, nc: int):
+def composite_packed(packed, bins: TileBins, cam: Camera, nc: int, tile_lo: int = 0,
+                     n_local: int | None = None):
     """Differentiable composite of packed rows: (acc [T, nc, 256],
-    tfin [T, 1, 256]), background not applied."""
+    tfin [T, 1, 256]) over the whole grid or a tile window (T = n_local,
+    `bins` built for the same window), background not applied."""
     return _CompositePacked.apply(packed, bins.pair_gauss, bins.tile_start,
-                                  bins.tile_count, cam, nc)
+                                  bins.tile_count, cam, nc, tile_lo, n_local)
 
 
 def render_tiles(g: ActivatedGaussians, camera_pose, rs: RenderSettings,
@@ -160,24 +168,23 @@ def render_tiles(g: ActivatedGaussians, camera_pose, rs: RenderSettings,
 
 
 class _TilesPose(torch.autograd.Function):
-    """(q, T) -> channel-major tile render; backward = kernel 3 (dq, dT).
-    The map is frozen during tracking: only the pose gets gradients. The
-    caller passes the camera-frame means and pose-Jacobian rows of (q, T):
-    forward-mode AD does not run inside a Function's forward."""
+    """(q, T) -> channel-major tile render of a tile window; backward =
+    kernel 3 (dq, dT). The map is frozen during tracking: only the pose gets
+    gradients. The caller passes the rows packed at (q, T) with their
+    pose-Jacobian columns, `packed32` [N, 32]: forward-mode AD does not run
+    inside a Function's forward. `reduce` ([12] -> [12]) sums the window's
+    12 partial sums over the windows of the other ranks (the sharded
+    tracking path's one all-reduce), or is None."""
 
     @staticmethod
-    def forward(ctx, q, T, means_cam, jac_rows, g, bins, rs, nc):
-        dev = g.xyz.device
-        proj = project_gaussians(means_cam, effective_scales(g.scales, rs), g.rotations,
-                                 g.opacity, g.shs, g.alive, torch.eye(4, device=dev),
-                                 rs.cam, rs.sh_degree, torch.zeros(3, device=dev))
-        packed32 = torch.cat([proj.packed, jac_rows], dim=1).contiguous()
+    def forward(ctx, q, T, packed32, bins, rs, nc, tile_lo, n_local, reduce):
         acc, tfin = kernels.composite_fwd(packed32, bins.pair_gauss, bins.tile_start,
-                                          bins.tile_count, rs.cam, nc)
+                                          bins.tile_count, rs.cam, nc, tile_lo=tile_lo,
+                                          n_local=n_local)
         ctx.save_for_backward(q, packed32, bins.pair_gauss, bins.tile_start,
                               bins.tile_count, acc, tfin)
-        ctx.rs, ctx.nc = rs, nc
-        return acc + tfin * background(rs, dev)[:nc][None, :, None]
+        ctx.rs, ctx.nc, ctx.window, ctx.reduce = rs, nc, (tile_lo, n_local), reduce
+        return acc + tfin * background(rs, acc.device)[:nc][None, :, None]
 
     @staticmethod
     def backward(ctx, d_out):
@@ -186,21 +193,51 @@ class _TilesPose(torch.autograd.Function):
         d_out = d_out.contiguous()
         bg = background(rs, d_out.device)[:nc]
         dtfin = torch.sum(d_out * bg[None, :, None], dim=1, keepdim=True)
+        tile_lo, n_local = ctx.window
         psum = kernels.composite_pose_bwd(packed32, pair_gauss, tile_start, tile_count,
-                                          acc, tfin, d_out, dtfin, rs.cam, nc)
-        dq, dT = pose_grads_from_partials(psum, q)
-        return dq, dT, None, None, None, None, None, None
+                                          acc, tfin, d_out, dtfin, rs.cam, nc,
+                                          tile_lo=tile_lo, n_local=n_local)
+        dq, dT = pose_grads_from_partials(psum, q, ctx.reduce)
+        return dq, dT, None, None, None, None, None, None, None
 
 
-def pose_grads_from_partials(psum, q):
+def pose_grads_from_partials(psum, q, reduce=None):
     """Kernel 3's per-tile partials [T, 12] -> (dq, dT): dT = sum d(mean_cam);
     dq = the quaternion -> R VJP of M = sum d(mean_cam) (x) mean_world
-    (= dL/dR, since mean_cam = R mean_world + T)."""
+    (= dL/dR, since mean_cam = R mean_world + T). `reduce` is applied to the
+    [12] sums first (the other windows' share, under a mesh)."""
     s = psum.sum(0)
+    if reduce is not None:
+        s = reduce(s)
     with torch.enable_grad():
         qq = q.detach().requires_grad_(True)
         (dq,) = torch.autograd.grad(quat_to_rotmat(qq).reshape(9), qq, s[3:12])
     return dq, s[0:3]
+
+
+@torch.no_grad()
+def pack_pose_rows(g: ActivatedGaussians, q, T, rs: RenderSettings):
+    """The rows kernels 1 and 3 read in tracking: packed [N, 16] at the pose
+    (q, T) with the pose-Jacobian columns 16-31 appended, [N, 32]."""
+    if not (rs.transform_means_python and rs.sh_degree == 0):
+        raise ValueError("fused pose gradients require transform_means_python "
+                         "and sh_degree 0")
+    g = ActivatedGaussians(*(t.detach() for t in g))
+    means_cam = means_cam_soa(g.xyz, torch.cat([q.detach(), T.detach()]))
+    scales = effective_scales(g.scales, rs)
+    jac_rows = conic_pose_jacobian_rows(means_cam, scales, g.rotations, g.xyz, rs.cam)
+    dev = g.xyz.device
+    proj = project_gaussians(means_cam, scales, g.rotations, g.opacity, g.shs, g.alive,
+                             torch.eye(4, device=dev), rs.cam, rs.sh_degree,
+                             torch.zeros(3, device=dev))
+    return torch.cat([proj.packed, jac_rows], dim=1).contiguous()
+
+
+def tiles_pose(q, T, packed32, bins: TileBins, rs: RenderSettings, nc: int,
+               tile_lo: int = 0, n_local: int | None = None, reduce=None):
+    """The fused-pose render of `pack_pose_rows`'s rows over the whole grid
+    or a tile window; see _TilesPose."""
+    return _TilesPose.apply(q, T, packed32, bins, rs, nc, tile_lo, n_local, reduce)
 
 
 def render_tiles_pose(g: ActivatedGaussians, q, T, rs: RenderSettings,
@@ -209,15 +246,7 @@ def render_tiles_pose(g: ActivatedGaussians, q, T, rs: RenderSettings,
     forward, and d/d(q, T) from kernel 3. Valid where every pose-dependent
     quantity flows through the camera-frame means: transform_means_python
     with sh_degree 0 (the shipped configs)."""
-    if not (rs.transform_means_python and rs.sh_degree == 0):
-        raise ValueError("fused pose gradients require transform_means_python "
-                         "and sh_degree 0")
-    g = ActivatedGaussians(*(t.detach() for t in g))
-    with torch.no_grad():
-        means_cam = means_cam_soa(g.xyz, torch.cat([q, T]))
-        jac_rows = conic_pose_jacobian_rows(means_cam, effective_scales(g.scales, rs),
-                                            g.rotations, g.xyz, rs.cam)
-    return _TilesPose.apply(q, T, means_cam, jac_rows, g, bins, rs, nc)
+    return tiles_pose(q, T, pack_pose_rows(g, q, T, rs), bins, rs, nc)
 
 
 def render(g: ActivatedGaussians, camera_pose, rs: RenderSettings, bins: TileBins | None = None):

@@ -3,6 +3,7 @@
 
     python -m mm3dgs_slam_torch.scripts.run_golden [--config configs/synthetic_tum.yml]
         [--outdir DIR] [--decomp] [--frames N] [--scene PATH] [--device cuda|cpu]
+        [--mesh-devices W]
 
 Runs the SLAM on the config (a synthetic one by default) on the card unless
 --device says otherwise. --decomp turns on debug.frame_decomp (the phase
@@ -10,6 +11,9 @@ table and its results.npz keys); --frames overrides synthetic.n_frames for
 short runs; --scene injects a scene .npz in place of the generated one, e.g.
 mm3dgs_slam_torch/assets/jax_scene_synthetic_tum.npz, the JAX package's own
 scene of that config, so that the run renders the JAX golden run's frames.
+--mesh-devices sets tpu.mesh_devices: W > 1 runs the sharded map, launched
+as ``torchrun --standalone --nproc_per_node W -m
+mm3dgs_slam_torch.scripts.run_golden --mesh-devices W ...``.
 Exits non-zero when the run failed.
 """
 from __future__ import annotations
@@ -22,9 +26,11 @@ from ..config import load_config
 
 
 def golden_config(config: str, outdir: str | None = None, decomp: bool = False,
-                  frames: int | None = None) -> dict:
+                  frames: int | None = None, mesh_devices: int | None = None) -> dict:
     """The config with run_golden's overrides applied."""
     cfg = load_config(config)
+    if mesh_devices is not None:
+        cfg["tpu"]["mesh_devices"] = mesh_devices
     if outdir:
         cfg["outputdir"] = outdir
     if decomp:
@@ -44,8 +50,10 @@ def main(argv=None) -> int:
                     help="override synthetic n_frames (short profiling runs)")
     ap.add_argument("--scene", default=None, help="a scene .npz to inject")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="tpu.mesh_devices (W > 1: run under torchrun with W ranks)")
     args = ap.parse_args(argv)
-    cfg = golden_config(args.config, args.outdir, args.decomp, args.frames)
+    cfg = golden_config(args.config, args.outdir, args.decomp, args.frames, args.mesh_devices)
     slam = run(cfg, args.device, args.scene)
     return 1 if slam.failed is not None else 0
 

@@ -11,14 +11,17 @@ from ..models.gaussians import NewGaussians
 from ..ops.camera import Camera
 from ..ops.depth import backproject_all_pixels, project_points_fraction_inside, torch_style_median
 from ..ops.pose import pose_to_w2c
-from ..ops.render import ActivatedGaussians, RenderSettings, project_for_pose, render
+from ..ops.render import ActivatedGaussians, RenderSettings, project_for_pose
 from ..ops.sh import rgb_to_sh
+from ..parallel.mesh import SINGLE, Mesh
+from ..parallel.tile_sharded import render_sharded
 
 
 @torch.no_grad()
-def render_depth_sil(g: ActivatedGaussians, pose, rs: RenderSettings):
-    """(depth, silhouette, visibility_filter) of a no-grad render."""
-    out = render(g, pose, rs)
+def render_depth_sil(g: ActivatedGaussians, pose, rs: RenderSettings, mesh: Mesh = SINGLE):
+    """(depth, silhouette, visibility_filter) of a no-grad render of the map
+    sharded over `mesh` (the whole image on every rank)."""
+    out = render_sharded(g, pose, rs, mesh)
     return out["depth"][0], out["depth"][1], out["visibility_filter"]
 
 
@@ -39,17 +42,17 @@ def covisibility_fraction(pts, valid, candidate_pose, cam: Camera, edge: int = 0
 
 
 @torch.no_grad()
-def covis_check_last_kf(g, last_pose, est_pose, rs: RenderSettings):
+def covis_check_last_kf(g, last_pose, est_pose, rs: RenderSettings, mesh: Mesh = SINGLE):
     """need_new_keyframe's covisibility test (mapper.py:141-167): the last
     keyframe's rendered points, fraction visible from the current pose."""
-    depth, sil, _ = render_depth_sil(g, last_pose, rs)
+    depth, sil, _ = render_depth_sil(g, last_pose, rs, mesh)
     pts, valid = keyframe_world_points(depth, sil, last_pose, rs.cam)
     return covisibility_fraction(pts, valid, est_pose, rs.cam)
 
 
 @torch.no_grad()
-def kf_world_points(g, pose, rs: RenderSettings):
-    depth, sil, _ = render_depth_sil(g, pose, rs)
+def kf_world_points(g, pose, rs: RenderSettings, mesh: Mesh = SINGLE):
+    depth, sil, _ = render_depth_sil(g, pose, rs, mesh)
     return keyframe_world_points(depth, sil, pose, rs.cam)
 
 
@@ -62,19 +65,21 @@ class NewGaussianStats(NamedTuple):
 @torch.no_grad()
 def new_gaussian_candidates(g: ActivatedGaussians, pose, gt_color, depth,
                             rs: RenderSettings, first_frame: bool,
-                            method: str = "vigs") -> NewGaussianStats:
+                            method: str = "vigs", mesh: Mesh = SINGLE) -> NewGaussianStats:
     """One candidate per pixel and the mask of which to add
     (initialize_new_gaussians, mapper.py:495-688):
     non-presence = silhouette < 0.5 OR depth error > 10x its median (splatam:
     render depth > depth AND depth error > 50x its median);
     candidates: back-projected center, RGB->SH color, identity rotation,
-    logit-0 opacity, isotropic log scale from the pixel footprint."""
+    logit-0 opacity, isotropic log scale from the pixel footprint. The
+    render is the map's sharded over `mesh`, so every rank gets the same
+    candidates."""
     cam = rs.cam
     H, W = cam.height, cam.width
     if first_frame:
         non_presence = torch.ones((H, W), dtype=torch.bool, device=depth.device)
     else:
-        out = render(g, pose, rs)
+        out = render_sharded(g, pose, rs, mesh)
         render_depth, silhouette = out["depth"][0], out["depth"][1]
         depth_error = torch.abs(depth - render_depth) * (depth > 0)
         med = torch_style_median(depth_error)

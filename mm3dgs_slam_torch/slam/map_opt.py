@@ -24,6 +24,14 @@ reach them through the projection. Reproduced semantics, quirks included:
   * under BA the map gradients of the rows outside `ba_mask` are zeroed
     before the map Adam (their moments still decay), and the pose Adam
     (`pose_adam`) steps on every iteration, prune iterations included.
+
+The state holds this rank's rows of the map sharded over `ms.mesh` (JAX
+map_opt.py:134-146, 209-216, 253-266, 392-400): the bins are this rank's
+tile window of the gathered projection, the loss reads the image gathered
+from every rank's window (parallel/tile_sharded.py), the prune is
+shard-local and BA's pose gradient is summed over the ranks, so every rank
+takes the same pose step. The default mesh is one process
+(parallel.mesh.SINGLE), where every collective is the identity.
 """
 from __future__ import annotations
 
@@ -33,11 +41,14 @@ import numpy as np
 import torch
 
 from ..models.gaussians import (AdamState, GaussianMap, MapOptHyper, adam_update,
-                                prune_compact, prune_mask_reference)
-from ..ops.binning import build_bins
+                                prune_mask_reference)
 from ..ops.losses import l1_loss, masked_mean, pearson_loss, ssim
 from ..ops.render import (RenderSettings, background, composite_packed, from_tiles,
                           project_for_pose, tile_pixel_valid, to_tiles)
+from ..parallel.mesh import SINGLE, Mesh
+from ..parallel.shard_local import prune_compact_sharded
+from ..parallel.sharded import gather_rows, replicate_proj
+from ..parallel.tile_sharded import build_window_bins, gather_tiles
 
 
 class MapOptSettings(NamedTuple):
@@ -58,6 +69,7 @@ class MapOptSettings(NamedTuple):
     cam_q_lr: float = 0.003
     hyper: MapOptHyper | None = None
     rebin_every: int = 1
+    mesh: Mesh = SINGLE   # the ranks the map is sharded over
 
 
 class MapState(NamedTuple):
@@ -72,16 +84,20 @@ class MapState(NamedTuple):
 
 
 def map_loss(m: GaussianMap, screen_offset, pose, gt_color, gt_depth, est_depth,
-             bins, ms: MapOptSettings):
+             bins, ms: MapOptSettings, counts=None):
     """Loss and (radius, visible) for one keyframe; differentiable in the
-    map leaves and `screen_offset` [N, 2]."""
+    map leaves and `screen_offset` [N, 2]. `bins` are this rank's window
+    bins and `counts` every rank's row count."""
     rs = ms.rs
     proj = project_for_pose(m.activated(), pose, rs)
     packed = torch.cat([proj.packed[:, :2] + screen_offset, proj.packed[:, 2:]], dim=1)
     splatam = ms.method == "splatam"
     nc = 4 if (splatam or ms.use_depth_estimate_loss) else 3
-    acc, tfin = composite_packed(packed, bins, rs.cam, nc)
-    out_t = acc + tfin * background(rs, acc.device)[:nc][None, :, None]
+    lo, n_local = ms.mesh.window(rs.cam)
+    acc, tfin = composite_packed(gather_rows(packed, ms.mesh, counts), bins, rs.cam, nc,
+                                 lo, n_local)
+    out_t = gather_tiles(acc + tfin * background(rs, acc.device)[:nc][None, :, None],
+                         ms.mesh, rs.cam)
     image = from_tiles(out_t[:, :3], rs.cam)
     lam = ms.lambda_dssim
     loss = (1 - lam) * l1_loss(image, gt_color) + lam * (1.0 - ssim(image, gt_color))
@@ -103,13 +119,14 @@ def map_loss(m: GaussianMap, screen_offset, pose, gt_color, gt_depth, est_depth,
     return loss, proj.radius, proj.radius > 0
 
 
-def _map_bins(m: GaussianMap, pose, ms: MapOptSettings):
+def _map_bins(m: GaussianMap, pose, ms: MapOptSettings, counts=None):
     with torch.no_grad():
-        return build_bins(project_for_pose(m.activated(), pose, ms.rs), ms.rs.cam)
+        proj = project_for_pose(m.activated(), pose, ms.rs)
+        return build_window_bins(replicate_proj(proj, ms.mesh, counts), ms.rs.cam, ms.mesh)
 
 
 def _grad_and_stats(st: MapState, bins, pose, i, gt_color, gt_depth, est_depth,
-                    ms: MapOptSettings):
+                    ms: MapOptSettings, counts=None):
     """One iteration's loss, map gradients, pose gradient (None unless BA)
     and densification-stats update."""
     leaves = [t.detach().requires_grad_(True) for t in st.m]
@@ -120,11 +137,15 @@ def _grad_and_stats(st: MapState, bins, pose, i, gt_color, gt_depth, est_depth,
     if ms.do_BA:
         pose = pose.detach().requires_grad_(True)
         wrt.append(pose)
-    loss, radii, visible = map_loss(m, screen, pose, gt_color, gt_depth, est_depth, bins, ms)
+    loss, radii, visible = map_loss(m, screen, pose, gt_color, gt_depth, est_depth, bins, ms,
+                                    counts)
     grads = torch.autograd.grad(loss, wrt, allow_unused=True)
     grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip(wrt, grads)]
     gm, g_screen = GaussianMap(*grads[:len(leaves)]), grads[len(leaves)]
     g_pose = grads[-1] if ms.do_BA else None
+    if g_pose is not None:
+        # each rank's rows give a share of the window pose's gradient
+        g_pose = ms.mesh.sum_replicated(g_pose)
     if i <= ms.densify_until_iter:
         max_radii = torch.where(visible, torch.maximum(st.max_radii, radii.to(torch.float32)),
                                 st.max_radii)
@@ -199,19 +220,22 @@ def optimize_map(st: MapState, kf_colors, kf_depths, kf_ests, kf_poses, schedule
     kf_ests [K, H, W], kf_poses [K, 7]; `schedule` [iters] indexes K. The
     returned state's kf_poses are the window's poses, moved under BA."""
     pa = PoseAdam(kf_poses, torch.zeros_like(kf_poses), torch.zeros_like(kf_poses))
+    mesh = ms.mesh
+    counts = mesh.row_counts(st.m.n)
     for kind, k, base_i, n in plan_segments(schedule, ms):
-        bins = _map_bins(st.m, pa.poses[k], ms)
+        bins = _map_bins(st.m, pa.poses[k], ms, counts)
         for i in range(base_i, base_i + n):
             loss, gm, g_pose, max_radii, grad_accum, denom = _grad_and_stats(
-                st, bins, pa.poses[k], i, kf_colors[k], kf_depths[k], kf_ests[k], ms)
+                st, bins, pa.poses[k], i, kf_colors[k], kf_depths[k], kf_ests[k], ms, counts)
             if kind == "prune":
                 size = None if ms.method == "splatam" else ms.size_threshold
                 pmask = prune_mask_reference(st.m, camera_extent, ms.min_opacity,
                                              max_radii, size)
-                m, adam, idx = prune_compact(st.m, st.adam, ~pmask)
-                ba_mask = None if st.ba_mask is None else st.ba_mask[idx]
-                st = MapState(m, adam, max_radii[idx], grad_accum[idx], denom[idx], loss,
-                              ba_mask)
+                m, adam, extras = prune_compact_sharded(
+                    st.m, st.adam, ~pmask, mesh,
+                    extras=(max_radii, grad_accum, denom, st.ba_mask))
+                counts = mesh.row_counts(m.n)
+                st = MapState(m, adam, *extras[:3], loss, extras[3])
             else:
                 with torch.no_grad():
                     m, adam = adam_update(st.m, gm, st.adam, ms.hyper, row_mask=st.ba_mask)

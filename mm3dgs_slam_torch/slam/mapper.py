@@ -13,6 +13,13 @@ With `debug.frame_decomp` on (the SLAM sets `decomp_on` and shares its
 phases: covis_set, niqe (the NIQE score), kf_decision (the rest of the
 keyframe decision), candidates, add_keyframe, window_upload, ba_mask and
 optimize, each ending at a card synchronize.
+
+The map passed in and out is this rank's rows of the map sharded over
+`mesh` (JAX mapper.py:435-441; one process by default): the keyframe,
+covisibility and candidate renders are the sharded map's (the same image on every rank, so every rank keeps the same
+keyframes and candidates), growth deals the candidates out by
+parallel.shard_local.append_gaussians_sharded, the densification stats are
+this rank's rows, and only rank 0 writes the keyframe PNGs.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ from .map_ops import (covis_check_last_kf, covisibility_fraction, covisible_gaus
                       keyframe_world_points, kf_world_points, new_gaussian_candidates,
                       render_depth_sil)
 from .map_opt import MapOptSettings, MapState, optimize_map
+from ..parallel.mesh import SINGLE, Mesh
+from ..parallel.shard_local import append_gaussians_sharded
 
 
 @dataclass
@@ -47,11 +56,13 @@ class KeyFrame:
 
 
 class Mapper:
-    def __init__(self, cfg: dict, rs: RenderSettings, device: torch.device):
+    def __init__(self, cfg: dict, rs: RenderSettings, device: torch.device,
+                 mesh: Mesh = SINGLE):
         self.cfg = cfg
         self.rs = rs
         self.cam = rs.cam
         self.device = device
+        self.mesh = mesh
         mp = cfg["mapping"]
         self.method = cfg["method"].lower()
         self.num_iter = int(mp["iters"])
@@ -97,6 +108,7 @@ class Mapper:
             cam_q_lr=float(mp["cam_q_lr"]),
             hyper=G.MapOptHyper.from_cfg(mp),
             rebin_every=int(cfg["tpu"].get("map_rebin_every", 1)),
+            mesh=mesh,
         )
         self.window_size = int(mp["kf_window_size"])
         self.group_schedule = bool(cfg["tpu"].get("group_mapping_schedule", False))
@@ -138,7 +150,8 @@ class Mapper:
         if len(self.keyframes) == 0 or idx == 0:
             return True
         last = self.keyframes[-1]
-        frac = covis_check_last_kf(g_act, self._dev(last.pose), self._dev(est_pose), self.rs)
+        frac = covis_check_last_kf(g_act, self._dev(last.pose), self._dev(est_pose), self.rs,
+                                   self.mesh)
         if float(frac) > mp["min_covisibility"]:
             return False
         return idx - last.idx >= mp["kf_every"]
@@ -155,7 +168,7 @@ class Mapper:
         self.append_keyframe(kf)
         if idx > 0:
             self.update_covisibility_graph(len(self.keyframes) - 1, g_act)
-        if self.cfg["debug"]["save_keyframes"]:
+        if self.cfg["debug"]["save_keyframes"] and self.mesh.rank == 0:
             self.save_keyframe_png(kf)
         return kf
 
@@ -178,7 +191,8 @@ class Mapper:
 
     def update_covisibility_graph(self, key: int, g_act):
         """mapper.py:242-277: link the new keyframe to covisible ones."""
-        pts, valid = kf_world_points(g_act, self._dev(self.keyframes[key].pose), self.rs)
+        pts, valid = kf_world_points(g_act, self._dev(self.keyframes[key].pose), self.rs,
+                                     self.mesh)
         thr = self.cfg["mapping"]["kf_covisibility"]
         for kid, other in enumerate(self.keyframes[:-1]):
             f = float(covisibility_fraction(pts, valid, self._dev(other.pose), self.cam))
@@ -196,7 +210,7 @@ class Mapper:
             depth = gt_depth
             sil = torch.ones_like(depth)
         else:
-            depth, sil, _ = render_depth_sil(g_act, self._dev(est_pose), self.rs)
+            depth, sil, _ = render_depth_sil(g_act, self._dev(est_pose), self.rs, self.mesh)
         d = (depth * (sil > 0.99)).cpu().numpy()
         valid_yx = np.argwhere(d > 0)
         if len(valid_yx) == 0:
@@ -278,7 +292,7 @@ class Mapper:
             self.grad_accum = torch.zeros_like(self.max_radii)
             self.denom = torch.zeros_like(self.max_radii)
 
-        n_added = None
+        added = None   # [m.n] bool: the rows appended on this rank this frame
         niqe_before = self.decomp["map.niqe"] if self.decomp_on else 0.0
         is_new_kf = self.need_new_keyframe(idx, g_act, est_pose, gt_color_np, gt_depth_np,
                                            est_depth_np, n_img)
@@ -289,8 +303,10 @@ class Mapper:
             depth_for_init = gt_depth if self.cfg["use_gt_depth"] else est_depth
             stats = new_gaussian_candidates(
                 g_act, self._dev(est_pose), gt_color, depth_for_init, self.rs,
-                first_frame=(idx == 0 and len(self.keyframes) == 0), method=self.method)
-            m, adam, n_added = G.append_gaussians(m, adam, stats.candidates, self.max_new)
+                first_frame=(idx == 0 and len(self.keyframes) == 0), method=self.method,
+                mesh=self.mesh)
+            m, adam, _, added = append_gaussians_sharded(m, adam, stats.candidates, self.mesh,
+                                                         self.max_new)
             # densification resets the stats (gaussian_model.py:482-488)
             self.max_radii = torch.zeros((m.n,), dtype=torch.float32, device=self.device)
             self.grad_accum = torch.zeros_like(self.max_radii)
@@ -315,8 +331,8 @@ class Mapper:
             # the rows seen from 2 window views, and those appended this
             # frame (mapper.py:931-936)
             ba_mask = covisible_gaussian_mask(m.activated(), kf_poses, self.rs, 2)
-            if n_added is not None:
-                ba_mask[m.n - n_added:] = True
+            if added is not None:
+                ba_mask |= added
         t0 = self._ph("map.ba_mask", t0)
         st = optimize_map(MapState(m, adam, self.max_radii, self.grad_accum, self.denom,
                                    ba_mask=ba_mask),

@@ -35,6 +35,16 @@ per-frame medians is printed and results.npz gains frame_decomp,
 frame_decomp_phases and frame_decomp_rows. `debug.jax_profiler_dir` traces
 the whole run with torch.profiler (CPU and, on the card, CUDA activities)
 and writes a Chrome trace ``trace.json`` into that directory.
+
+`tpu.mesh_devices: W > 1` runs the sharded map (parallel/, JAX slam.py:160-187)
+in W processes started by ``torchrun --standalone --nproc_per_node W``: each
+rank runs this whole frame loop on the same frames and holds its own rows of
+the map; the tracking and mapping renders split the tile grid among the
+ranks. A world size other than W raises ValueError. The poses, keyframes and
+NIQE decisions are the same on every rank; rank 0 alone writes results.npz,
+the PLY (every rank's rows gathered) and the video, and prints the metrics.
+A rank that fails ends the run without saving (the save needs every rank);
+torchrun then stops the others.
 """
 from __future__ import annotations
 
@@ -58,7 +68,10 @@ from ..ops.camera import Camera
 from ..ops.depth import depth_to_rgb_np, get_scale_shift_ls
 from ..ops.losses import psnr as psnr_fn, ssim as ssim_fn
 from ..ops.pose import propagate_const_vel, propagate_imu, w2c_to_pose
-from ..ops.render import RenderSettings, render
+from ..ops.render import RenderSettings
+from ..parallel.mesh import make_mesh
+from ..parallel.sharded import gather_rows, shard_map_state
+from ..parallel.tile_sharded import render_sharded
 from .mapper import KeyFrame, Mapper
 from .tracker import TrackSettings, track_frame
 
@@ -75,6 +88,10 @@ class SLAM:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.failed: BaseException | None = None
+        # tpu.mesh_devices > 1: this process is one rank of the sharded map
+        self.mesh = make_mesh(int(cfg["tpu"].get("mesh_devices", 1)), self.device)
+        self.device = self.mesh.device
+        self.is_writer = self.mesh.rank == 0
 
         extra = {"device": self.device, "scene": scene} if cfg["dataset"].lower() == "synthetic" else {}
         self.dataset = get_dataset_type(cfg["dataset"])(
@@ -115,6 +132,7 @@ class SLAM:
         if self._resume:
             self.load_checkpoint(cfg["iteration"])
         self.adam = G.init_adam(self.gaussians)
+        self.gaussians, self.adam = shard_map_state(self.gaussians, self.adam, self.mesh)
         # the motion model's seed of each tracked frame (NaN where untracked)
         self.seed_pose_list = np.full((self.n_img, 7), np.nan, np.float32)
 
@@ -128,15 +146,15 @@ class SLAM:
             imu_T_weight=float(tr.get("imu_T_weight", 0.0)),
             imu_q_weight=float(tr.get("imu_q_weight", 0.0)),
             position_lr=float(tr["position_lr"]), rotation_lr=float(tr["rotation_lr"]),
-            rebin_every=int(cfg["tpu"].get("rebin_every", 1)))
-        self.mapper = Mapper(cfg, self.rs, self.device)
+            rebin_every=int(cfg["tpu"].get("rebin_every", 1)), mesh=self.mesh)
+        self.mapper = Mapper(cfg, self.rs, self.device, self.mesh)
         if self._resume:
             self._restore_keyframes()
         self.dpt = None
         if not cfg["use_gt_depth"]:
             self.dpt = get_dpt(cfg["dpt_model"], self.device, weights=cfg["dpt_weights"])
         self.video_writer = None
-        if cfg["debug"]["create_video"]:
+        if cfg["debug"]["create_video"] and self.is_writer:
             import cv2
 
             self.video_writer = cv2.VideoWriter(
@@ -238,8 +256,8 @@ class SLAM:
                 raise ValueError(f"unknown depth_fit: {mode!r}")
             return 1.0 / (est_depth + 0.001) * self.cfg["cam"]["png_depth_scale"] / 10.0
         with torch.no_grad():
-            out = render(self.gaussians.activated(), self._dev(self.estimate_pose_list[idx]),
-                         self.rs)
+            out = render_sharded(self.gaussians.activated(),
+                                 self._dev(self.estimate_pose_list[idx]), self.rs, self.mesh)
         render_depth, sil = out["depth"][0], out["depth"][1]
         s, b = get_scale_shift_ls(est_depth, render_depth, (sil > 0.99) & (est_depth > 1e-6))
         return 1.0 / (s * est_depth + b)
@@ -263,22 +281,54 @@ class SLAM:
                         k: v - before.get(k, 0.0) for k, v in self.frame_decomp.items()
                         if v - before.get(k, 0.0) > 0.0})
                 if self.cfg["debug"].get("get_runtime_stats"):
-                    print(f"frame {idx + 1}/{self.n_img}: "
-                          f"{self.frame_seconds[-1]:.2f}s, "
-                          f"{self.gaussians.n} gaussians", flush=True)
+                    n = self.n_gaussians()
+                    if self.is_writer:
+                        print(f"frame {idx + 1}/{self.n_img}: "
+                              f"{self.frame_seconds[-1]:.2f}s, {n} gaussians", flush=True)
                 last_idx += 1
                 if idx in (self.cfg.get("save_iterations") or []):
                     self.save_map(idx)
         except Exception as e:  # noqa: BLE001 — save-on-failure boundary
             traceback.print_exc()
             self.failed = e
+            if self.mesh.size > 1:
+                raise   # the save needs every rank: end this rank's run
             print("\nSLAM failed. Saving map and results.\n")
         finally:
             if prof is not None:
                 self._stop_profiler(prof)
             self._frames.close()
-            self.save_map(last_idx)
-            self.save_results(last_idx)
+            if self.mesh.size == 1 or self.failed is None:
+                self.save_map(last_idx)
+                self.save_results(last_idx)
+        if self.mesh.size > 1:
+            self._print_rank_summary()
+
+    def n_gaussians(self) -> int:
+        """Rows of the whole map (every rank's)."""
+        return sum(self.mesh.row_counts(self.gaussians.n))
+
+    def _print_rank_summary(self):
+        """One line per rank, ``[rank r/W] {json}``: its rows, its kernel
+        launches (all, and over a tile window), its ms per tracking and
+        mapping iteration (with debug.get_runtime_stats; null without) and
+        a SHA-1 of its pose list, which every rank must share."""
+        import hashlib
+        import json
+
+        from ..ops import kernels
+
+        def per_it(total, n):
+            return total / n * 1e3 if n else None
+
+        print(f"[rank {self.mesh.rank}/{self.mesh.size}] " + json.dumps({
+            "gaussians": self.gaussians.n,
+            "launches": kernels.launch_counts(),
+            "launches_windowed": kernels.launch_counts_windowed(),
+            "ms_track": per_it(self.tracking_time_sum, self.tracking_iter_count),
+            "ms_map": per_it(self.mapper.mapping_time_sum, self.mapper.mapping_iter_count),
+            "pose_sha1": hashlib.sha1(self.estimate_pose_list.tobytes()).hexdigest()}),
+            flush=True)
 
     def _start_profiler(self):
         """debug.jax_profiler_dir: a torch.profiler trace of the whole run."""
@@ -366,7 +416,7 @@ class SLAM:
         # so the overflow check has nothing to fetch
         t0 = self._phase("overflow_check", time.perf_counter())
         self.gt_pose_list[idx] = _pose7(gt_w2c)
-        if self.video_writer is not None and idx > 0:
+        if self.cfg["debug"]["create_video"] and idx > 0:
             self._write_video_frame(idx, gt_color_np, gt_depth_np, est_scaled_np)
         self._phase("logging", t0)
 
@@ -376,7 +426,8 @@ class SLAM:
         timed into "Average Rendering Time"."""
         self._sync()
         t0 = time.perf_counter()
-        out = render(self.gaussians.activated(), self._dev(self.estimate_pose_list[idx]), self.rs)
+        out = render_sharded(self.gaussians.activated(), self._dev(self.estimate_pose_list[idx]),
+                             self.rs, self.mesh)
         self._sync()
         self.rendering_time_sum += time.perf_counter() - t0
         self.rendering_iter_count += 1
@@ -401,10 +452,13 @@ class SLAM:
 
     def _write_video_frame(self, idx, gt_color_np, gt_depth_np, est_depth_np):
         """rgb | render | |error| over GT depth | render depth | the scaled
-        estimate (GT depth without one), viridis (JAX slam.py:747-765)."""
+        estimate (GT depth without one), viridis (JAX slam.py:747-765). Under
+        a mesh every rank renders, rank 0 writes."""
         import cv2
 
         img, depth = self.render_eval(idx)
+        if self.video_writer is None:
+            return
         img, depth = img.cpu().numpy(), depth[0].cpu().numpy()
         row1 = np.concatenate([gt_color_np, img, np.abs(img - gt_color_np)], axis=2)
         third = gt_depth_np if est_depth_np is None else est_depth_np
@@ -414,10 +468,20 @@ class SLAM:
         frame = (np.clip(frame, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)
         self.video_writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
 
+    def full_map(self) -> G.GaussianMap:
+        """The whole map: every rank's rows, in rank order, on every rank (a
+        collective)."""
+        counts = self.mesh.row_counts(self.gaussians.n)
+        return G.GaussianMap(*(gather_rows(t.detach(), self.mesh, counts)
+                               for t in self.gaussians))
+
     def save_map(self, iteration: int):
         path = os.path.join(self.output, "point_cloud", f"iteration_{iteration}",
                             "point_cloud.ply")
-        d = G.to_numpy_dict(self.gaussians)
+        m = self.full_map()
+        if not self.is_writer:
+            return
+        d = G.to_numpy_dict(m)
         n_rest_true = (self.cfg["mapping"]["sh_degree"] + 1) ** 2 - 1
         save_ply(path, xyz=d["xyz"], features_dc=d["features_dc"],
                  features_rest=d["features_rest"][:, :n_rest_true], opacity=d["opacity"],
@@ -425,11 +489,17 @@ class SLAM:
         print("Map saved to " + path)
 
     def save_results(self, last_idx: int):
+        """results.npz and the printed metrics; under a mesh every rank
+        renders the eval frames and rank 0 alone prints and writes."""
         est = self.estimate_pose_list[:last_idx]
         gt = self.gt_pose_list[:last_idx]
         results = {"pose_est": est, "pose_gt": gt}
         if self.video_writer is not None:
             self.video_writer.release()
+        if not self.is_writer:
+            if last_idx > 0:
+                self.evaluate_images(last_idx)
+            return
         results["keyframes"] = np.array(
             [{"idx": kf.idx, "gt_color": kf.gt_color, "est_pose": kf.pose,
               "gt_depth": kf.gt_depth, "est_depth": kf.est_depth}

@@ -19,6 +19,14 @@ slam/tracker.py:45-266).
     stopped,
   * the returned pose is the LAST iteration's, reproducing the reference's
     ineffective best-candidate rebinding (tracker.py:167-181).
+
+The render goes through the mesh (JAX tracker.py:176-180, 262-278): `g` is
+this rank's rows of the sharded map, the bins are this rank's tile window of
+the gathered projection, the render is
+parallel.tile_sharded.render_tiles_pose_sharded (kernels 1 and 3 over the
+window, the 12 pose partial sums added over the ranks), and every rank
+computes the same loss and takes the same Adam step. The default mesh is one
+process (parallel.mesh.SINGLE): the whole map, the whole grid, no collective.
 """
 from __future__ import annotations
 
@@ -26,10 +34,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.binning import build_bins
 from ..ops.losses import masked_mean, masked_sum, pearson_loss, rel_pose_loss
 from ..ops.render import (ActivatedGaussians, RenderSettings, project_for_pose,
-                          render_tiles_pose, tile_pixel_valid, to_tiles)
+                          tile_pixel_valid, to_tiles)
+from ..parallel.mesh import SINGLE, Mesh
+from ..parallel.sharded import replicate_proj
+from ..parallel.tile_sharded import build_window_bins, render_tiles_pose_sharded
 
 
 class TrackSettings(NamedTuple):
@@ -50,13 +60,17 @@ class TrackSettings(NamedTuple):
     b2: float = 0.999
     eps: float = 1e-8               # torch.optim.Adam default
     rebin_every: int = 1
+    mesh: Mesh = SINGLE             # the ranks the map is sharded over
 
 
 def tracking_loss_tiles(g: ActivatedGaussians, q, T, gt_color_t, gt_depth_t,
-                        est_depth_t, valid, initial_pose, ts: TrackSettings, bins):
+                        est_depth_t, valid, initial_pose, ts: TrackSettings, bins,
+                        counts=None):
     """The tracking loss in tile layout [n_tiles, C, 256]; `initial_pose`
-    [7] is the seed the IMU prior pulls towards."""
-    out = render_tiles_pose(g, q, T, ts.rs, bins, nc=6 if ts.method == "splatam" else 5)
+    [7] is the seed the IMU prior pulls towards; `bins` are this rank's
+    window bins and `counts` every rank's row count."""
+    nc = 6 if ts.method == "splatam" else 5
+    out = render_tiles_pose_sharded(g, q, T, ts.rs, bins, ts.mesh, nc, counts)
     image, depth, silhouette = out[:, :3], out[:, 3], out[:, 4]
     presence = (silhouette > 0.99) & valid
     if ts.method == "splatam":
@@ -78,14 +92,23 @@ def tracking_loss_tiles(g: ActivatedGaussians, q, T, gt_color_t, gt_depth_t,
     return loss
 
 
+def _bins(g: ActivatedGaussians, pose, ts: TrackSettings, counts):
+    """The bins at `pose`: this rank's window of the gathered projection."""
+    proj = project_for_pose(g, pose, ts.rs)
+    return build_window_bins(replicate_proj(proj, ts.mesh, counts), ts.rs.cam, ts.mesh)
+
+
 def track_frame(g: ActivatedGaussians, pose_init, gt_color, gt_depth, est_depth,
                 ts: TrackSettings):
     """Optimize the pose for `ts.iters` Adam steps. Returns (pose, last_loss).
 
-    g: the frozen map; pose_init [7]; gt_color [3, H, W]; gt_depth and
-    est_depth [H, W] (est_depth may be zeros when unused)."""
+    g: the frozen map (this rank's rows); pose_init [7];
+    gt_color [3, H, W]; gt_depth and est_depth [H, W] (est_depth may be
+    zeros when unused)."""
     cam = ts.rs.cam
     g = ActivatedGaussians(*(t.detach() for t in g))
+    # the map is frozen: every rank's row count holds for the whole frame
+    counts = ts.mesh.row_counts(g.xyz.shape[0])
     gt_color_t = to_tiles(gt_color, cam)
     gt_depth_t = to_tiles(gt_depth, cam)
     est_depth_t = to_tiles(est_depth, cam)
@@ -102,11 +125,11 @@ def track_frame(g: ActivatedGaussians, pose_init, gt_color, gt_depth, est_depth,
     for i in range(ts.iters):
         if i % rebin == 0:
             with torch.no_grad():
-                bins = build_bins(project_for_pose(g, torch.cat([q, T]), ts.rs), cam)
+                bins = _bins(g, torch.cat([q, T]), ts, counts)
         qv = q.requires_grad_(True)
         Tv = T.requires_grad_(True)
         loss = tracking_loss_tiles(g, qv, Tv, gt_color_t, gt_depth_t, est_depth_t,
-                                   valid, initial_pose, ts, bins)
+                                   valid, initial_pose, ts, bins, counts)
         gq, gT = torch.autograd.grad(loss, (qv, Tv))
         with torch.no_grad():
             step = i + 1

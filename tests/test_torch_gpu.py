@@ -26,6 +26,10 @@ POSE = [0.999, 0.02, -0.01, 0.005, 0.01, -0.02, 0.03]
 # Kernel 3's per-tile partials cancel, so they are held, as in chip_smoke.py,
 # to an atol of this fraction of each partial's sum |term| and rtol 5e-3.
 PARTIAL_ATOL = 1e-5
+# Kernel 2's gradients are held to GRAD_TOL; on a dense scene, where even
+# the float64 backward of the float32 forward's outputs misses it, against
+# the float64 evaluation (_bwd_as_accurate_as_plain).
+GRAD_TOL = dict(atol=5e-5, rtol=5e-3)
 
 
 def _cuda():
@@ -146,6 +150,40 @@ def test_kernel_work_counts_equal_plain_warp_pairs(kind):
         assert want["warp_pairs_min"] <= walked <= kept < 8 * want["pairs_walked"]
 
 
+def _dense_scene(dev):
+    """20,000 random Gaussians at 640x480 (227,220 pairs): deep saturating
+    layers, behind which kernel 2's dL/dalpha cancels."""
+    return _scene(dev, n=20000, h=480, w=640, f=525.0)
+
+
+def _bwd_as_accurate_as_plain(dk, packed, args, nc):
+    """Kernel 2's dpacked `dk` on `args` (pair_gauss, tile_start,
+    tile_count, acc, tfin, dacc, dtfin, cam) where GRAD_TOL is out of reach
+    of float32: against the float64 evaluation of the plain formulas (on the
+    float64 forward) it is no further off than the float32 plain version,
+    its error norm and its count of gradients beyond GRAD_TOL each within
+    2x of the plain version's. Prints the readings, with those of the
+    float64 backward fed the float32 forward's acc and T."""
+    pair_gauss, tile_start, tile_count, acc, tfin, dacc, dtfin, cam = args
+    bins = (pair_gauss, tile_start, tile_count)
+    p64, dacc64, dtfin64 = packed.double(), dacc.double(), dtfin.double()
+    acc64, tfin64 = plain.composite_fwd_plain(p64, *bins, cam, nc)
+    d64 = plain.composite_bwd_plain(p64, *bins, acc64, tfin64, dacc64, dtfin64, cam, nc)
+    got = {"kernel 2": dk, "plain": plain.composite_bwd_plain(packed, *args, nc),
+           "float64 on the float32 forward": plain.composite_bwd_plain(
+               p64, *bins, acc.double(), tfin.double(), dacc64, dtfin64, cam, nc)}
+    tol = GRAD_TOL["atol"] + GRAD_TOL["rtol"] * d64.abs()
+    norm, beyond = {}, {}
+    for name, d in got.items():
+        e = (d.double() - d64).abs()
+        norm[name], beyond[name] = float(e.norm()), int((e > tol).sum())
+        print(f"[kernel 2, nc {nc}, {int(tile_count.sum())} pairs] {name} against float64: "
+              f"max error {float(e.max()):.4g}, norm {norm[name]:.4g}, beyond GRAD_TOL "
+              f"{beyond[name]} of {int((d64 != 0).sum())} (max |g| {float(d64.abs().max()):.4g})")
+    assert norm["kernel 2"] <= 2 * norm["plain"]
+    assert beyond["kernel 2"] <= 2 * beyond["plain"]
+
+
 def _pose_bwd_matches_plain(packed32, bins, cam, nc, dev):
     """Kernel 3's partials against the plain version's; returns both."""
     acc, tfin = kernels.composite_fwd(packed32, *_args(bins, cam), nc)
@@ -231,6 +269,10 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):   # kernel 2 is compiled for the mapping widths
         kernels.composite_bwd(packed, *_args(bins, rs.cam)[:3], acc, tfin, acc, tfin,
                               rs.cam, 5)
+    with pytest.raises(ValueError):   # the whole grid's bins for a window of 10 tiles
+        kernels.composite_fwd(packed, *_args(bins, rs.cam), 3, tile_lo=0, n_local=10)
+    with pytest.raises(ValueError):
+        kernels.composite_fwd(packed, *_args(bins, rs.cam), 3, tile_lo=-1)
 
 
 @pytest.mark.parametrize("hw", [(90, 100), (42, 64)])
@@ -282,6 +324,111 @@ def test_kernels_on_a_partial_tile_column(hw):
     work = torch.zeros(2, dtype=torch.int64, device=dev)
     kernels.composite_fwd(packed, *_args(bins, cam), 3, work=work)
     assert int(work[0]) == want["warp_pairs"]
+
+
+def _seeded_scene(dev, h=480, w=640, f=525.0):
+    """A frame seeded one Gaussian per pixel, as the mapper seeds its first
+    frame (logit-0 opacity, pixel-footprint scales), from a smooth numpy
+    depth and colour, and seen from a pose 2 cm and about a degree off: the
+    kind of map the main path renders (chip_smoke.py's check scene)."""
+    from mm3dgs_slam_torch.models import gaussians as G
+    from mm3dgs_slam_torch.slam.map_ops import new_gaussian_candidates
+
+    cam = Camera(h, w, f, f, w / 2 - 0.5, h / 2 - 0.5)
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:h, 0:w]
+    depth = 2.0 + 0.6 * np.sin(xx / 53.0) * np.cos(yy / 41.0) + 0.02 * rng.normal(size=(h, w))
+    shade = 0.5 + 0.4 * np.sin(xx / 17.0 + yy / 29.0)
+    color = np.clip(shade[None] * np.array([1.0, 0.7, 0.4])[:, None, None]
+                    + 0.05 * rng.normal(size=(3, h, w)), 0.0, 1.0)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    rs = RenderSettings(cam=cam)
+    empty = G.empty_map(0, dev)
+    stats = new_gaussian_candidates(empty.activated(), t([1, 0, 0, 0, 0, 0, 0]), t(color),
+                                    t(depth), rs, True)
+    m, _, _ = G.append_gaussians(empty, G.init_adam(empty), stats.candidates)
+    g = m.activated()
+    q = np.array([1.0, 0.005, -0.008, 0.003])
+    pose = t(np.concatenate([q / np.linalg.norm(q), [0.02, -0.01, 0.015]]))
+    with torch.no_grad():
+        proj = project_for_pose(g, pose, rs)
+        bins = build_bins(proj, cam)
+    return g, rs, pose, proj.packed.contiguous(), bins
+
+
+@pytest.mark.parametrize("scene", ["seeded", "dense"])
+@pytest.mark.parametrize("world", [2, 7])
+def test_windowed_launches_match_plain_and_whole_grid(world, scene):
+    """Each kernel launched over the tile windows of W ranks at 640x480
+    (1,200 tiles; W 7 leaves 4 pad tiles), as the tile-sharded render runs
+    it, on a frame seeded one Gaussian per pixel and on the dense scene:
+    the windows stitched against the whole-grid launch (kernel 1's outputs
+    and kernel 3's partials equal, kernel 2's dpacked summed over the
+    windows within GRAD_TOL, the pad acc 0, T 1 and zero partials); on the
+    seeded scene every window against its windowed plain version, on the
+    dense one kernel 2's whole-grid launch against the float64 evaluation
+    (there a pair whose alpha lies a few ulps from 1/255 is kept by one
+    float32 evaluation and skipped by another, so no per-value tolerance
+    holds kernel against plain)."""
+    from mm3dgs_slam_torch.parallel.mesh import tiles_per_shard
+
+    dev = _cuda()
+    if scene == "seeded":
+        g, rs, pose, packed, bins = _seeded_scene(dev)
+    else:
+        g, rs, pose, packed, bins = _dense_scene(dev)
+    cam = rs.cam
+    tpb = tiles_per_shard(cam, world)
+    ext = conic_pose_jacobian_rows(means_cam_soa(g.xyz, pose), g.scales, g.rotations, g.xyz, cam)
+    packed32 = torch.cat([packed, ext], 1).contiguous()
+    with torch.no_grad():
+        proj = project_for_pose(g, pose, rs)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pad = lambda x: torch.cat([x, x.new_zeros((world * tpb - x.shape[0],) + x.shape[1:])])  # noqa: E731
+    acc5, tfin5 = kernels.composite_fwd(packed32, *_args(bins, cam), 5)
+    acc3, tfin3 = kernels.composite_fwd(packed, *_args(bins, cam), 3)
+    d5 = torch.randn(pad(acc5).shape, generator=gen, device=dev)
+    dt = torch.randn(pad(tfin5).shape, generator=gen, device=dev)
+    d3 = d5[:, :3].contiguous()
+    psum = kernels.composite_pose_bwd(packed32, *_args(bins, cam)[:3], acc5, tfin5,
+                                      d5[:cam.n_tiles], dt[:cam.n_tiles], cam, 5)
+    whole = (*_args(bins, cam)[:3], acc3, tfin3, d3[:cam.n_tiles], dt[:cam.n_tiles], cam)
+    dpacked = kernels.composite_bwd(packed, *whole, 3)
+    if scene == "dense":
+        _bwd_as_accurate_as_plain(dpacked, packed, whole, 3)
+    windowed = kernels.FWD.launches_windowed
+    accs, psums, dsum = [], [], torch.zeros_like(dpacked)
+    for r in range(world):
+        lo, sl = r * tpb, slice(r * tpb, (r + 1) * tpb)
+        wb = build_bins(proj, cam, lo, tpb)
+        win = dict(tile_lo=lo, n_local=tpb)
+        a, t = kernels.composite_fwd(packed32, *_args(wb, cam), 5, **win)
+        pa = (packed32, *_args(wb, cam)[:3], a, t, d5[sl], dt[sl], cam, 5)
+        pk = kernels.composite_pose_bwd(*pa, **win)
+        a3, t3 = kernels.composite_fwd(packed, *_args(wb, cam), 3, **win)
+        ba = (*_args(wb, cam)[:3], a3, t3, d3[sl], dt[sl], cam)
+        dk = kernels.composite_bwd(packed, *ba, 3, **win)
+        if scene == "seeded":
+            ap, tp = plain.composite_fwd_plain(packed32, *_args(wb, cam), 5, **win)
+            torch.testing.assert_close(a, ap, atol=2e-5, rtol=1e-4)
+            torch.testing.assert_close(t, tp, atol=2e-5, rtol=1e-4)
+            pp, asum = plain.composite_pose_bwd_plain(*pa, abs_sum=True, **win)
+            assert bool(((pk - pp).abs() <= PARTIAL_ATOL * asum + 5e-3 * pp.abs()).all())
+            torch.testing.assert_close(dk, plain.composite_bwd_plain(packed, *ba, 3, **win),
+                                       **GRAD_TOL)
+        accs.append(torch.cat([a, t], 1))
+        psums.append(pk)
+        dsum += dk
+    torch.cuda.synchronize()
+    assert kernels.FWD.launches_windowed == windowed + 2 * world
+    stitched, psum_s = torch.cat(accs), torch.cat(psums)
+    assert torch.equal(stitched[:cam.n_tiles], torch.cat([acc5, tfin5], 1))
+    assert torch.equal(psum_s[:cam.n_tiles], psum)
+    assert bool((stitched[cam.n_tiles:, :5] == 0).all())
+    assert bool((stitched[cam.n_tiles:, 5] == 1.0).all())
+    assert bool((psum_s[cam.n_tiles:] == 0).all())
+    torch.testing.assert_close(dsum, dpacked, **GRAD_TOL)
+    assert float(dpacked.abs().max()) > 1e-3
 
 
 def test_bench_kernel_check_passes():

@@ -350,3 +350,63 @@ def test_train_tiny_dpt_script_writes_loadable_weights(tmp_path):
     est = TinyDPT(str(tmp_path / "w.npz")).estimate_depth(
         np.random.default_rng(0).uniform(size=(3, 30, 37)))
     assert est.shape == (30, 37) and torch.isfinite(est).all() and (est > 0).all()
+
+
+# ----------------------------------------------------------- imu_preintegrate
+def _imu_samples(tmp_path, fmt):
+    """A written IMU file: 60 samples at ~100 Hz with jittered stamps (the
+    fixed-dt quirk ignores them), all three accelerations nonzero (the
+    x-only quirk drops y and z) and turning about every axis."""
+    rng = np.random.default_rng(21)
+    n = 60
+    ts = 1.6e9 + np.cumsum(0.01 + rng.uniform(-2e-3, 2e-3, n))
+    accel = rng.normal(0.0, 0.8, (n, 3)) + [0.4, 9.81, -0.3]
+    gyro = rng.normal(0.0, 0.3, (n, 3))
+    if fmt == "utmm":
+        rows = rng.normal(size=(n, 36))
+        rows[:, 0], rows[:, 4:7], rows[:, 7:10] = ts, gyro, accel
+        path = tmp_path / "imu.txt"
+        np.savetxt(path, rows)
+    else:
+        path = tmp_path / "imu.csv"
+        np.savetxt(path, np.column_stack([ts, accel, gyro]), delimiter=",")
+    return path
+
+
+@pytest.mark.parametrize("fmt", ["utmm", "plain"])
+def test_imu_preintegrate_writes_the_jax_scripts_rows(tmp_path, fmt):
+    from mm3dgs_slam_torch.scripts import imu_preintegrate
+
+    imu = _imu_samples(tmp_path, fmt)
+    csvs = {}
+    for who in ("jax", "port"):
+        argv = ["--imu", imu, "--out", tmp_path / f"{who}_rel.csv",
+                "--world-out", tmp_path / f"{who}_world.csv", "--dt", 0.01]
+        if who == "jax":
+            code, out = _run_jax_script("imu_preintegrate", argv)
+        else:
+            code, out = _port_main(imu_preintegrate.main, argv)
+        assert code == 0 and "60 relative transforms" in out
+        csvs[who] = [(tmp_path / f"{who}_{k}.csv").read_text().splitlines()
+                     for k in ("rel", "world")]
+    for jlines, tlines in zip(csvs["jax"], csvs["port"]):
+        assert tlines[0] == jlines[0] == ",".join(imu_preintegrate.HEADER)
+        assert [r.split(",")[0] for r in tlines] == [r.split(",")[0] for r in jlines]
+        j = np.array([[float(v) for v in r.split(",")[1:]] for r in jlines[1:]])
+        t = np.array([[float(v) for v in r.split(",")[1:]] for r in tlines[1:]])
+        np.testing.assert_allclose(t, j, atol=1e-12, rtol=0)
+    # the same trajectory from the functions: right-composed, x-only, fixed dt
+    spec = importlib.util.spec_from_file_location("jax_imu_preintegrate",
+                                                  ROOT / "scripts" / "imu_preintegrate.py")
+    jmod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jmod)
+    ts, accel, gyro = imu_preintegrate.load_samples(str(imu), "auto")
+    jts, jaccel, jgyro = jmod.load_samples(str(imu), "auto")
+    np.testing.assert_array_equal(accel, jaccel)
+    np.testing.assert_array_equal(gyro, jgyro)
+    rel, world = imu_preintegrate.preintegrate(ts, accel, gyro, 0.01)
+    jrel, jworld = jmod.preintegrate(jts, jaccel, jgyro, 0.01)
+    np.testing.assert_allclose(world, jworld, atol=1e-12, rtol=0)
+    np.testing.assert_allclose(rel, jrel, atol=1e-12, rtol=0)
+    flat, _ = imu_preintegrate.preintegrate(ts, accel * [1, 0, 0], gyro, 0.01)
+    np.testing.assert_array_equal(flat, rel)   # y and z acceleration ignored
