@@ -5,11 +5,16 @@
 
 Phases (each passes or the script exits non-zero):
   1. device: the card's name and count, and nvidia-smi's name/power limit;
-  2. build: the three CUDA kernels from the sources in this checkout;
+  2. build: the three CUDA sources in this checkout (kernel 2's source holds
+     its two passes);
   3. kernels against their plain PyTorch versions at 640x480, on a map seeded
      from phase 4's first frame (synthetic_tum on the JAX package's scene,
      one Gaussian per pixel) seen from its second frame's pose: kernel 1 at nc 3/5/6 on black and white
-     backgrounds, kernel 2's dpacked, kernel 3's per-tile partials, dq and dT;
+     backgrounds; kernel 2 launched twice, its per-slot rows and dpacked the
+     same bits both times, the rows against the plain first pass and
+     dpacked against the plain passes (GRAD_TOL), dpacked bit-equal to the
+     plain reduce of the kernel's rows, each pass timed alone and both
+     together; kernel 3's per-tile partials, dq and dT;
      each kernel's count of (tile, pair, warp box)s its per-warp cull keeps
      against the plain count; times from CUDA events, bounds from the walk's
      counts in this data; the host wall time of one rebin (projection and
@@ -25,9 +30,9 @@ Phases (each passes or the script exits non-zero):
      kernel 3 at nc 5;
   3d. the three kernels over the tile windows of 2 and 7 ranks (the
      tile-sharded render's launches: grid n_local, tile tile_lo + block) on
-     phase 3's scene: every window against its windowed plain version, the
-     windows stitched against the whole-grid launch, each window launch's
-     time beside its bound;
+     phase 3's scene: every window against its windowed plain version (kernel
+     2 launched twice, the same bits), the windows stitched against the
+     whole-grid launch, each window launch's time beside its bound;
   4. the main path: the port's golden runner's config and run (`python -m
      mm3dgs_slam_torch.scripts.run_golden --scene
      mm3dgs_slam_torch/assets/jax_scene_synthetic_tum.npz --decomp`, the
@@ -95,7 +100,13 @@ Phases (each passes or the script exits non-zero):
      configs/synthetic_tum.yml and phase 4's scene, 3 frames, the two ranks
      sharing the card over gloo; each rank's rows, windowed launches and
      ms/iteration printed; ATE < 0.03 m, PSNR > 17 dB, within 5e-3 m and
-     1 dB of phase 4 over the same frames, both ranks' poses bit-equal.
+     1 dB of phase 4 over the same frames, both ranks' poses bit-equal;
+ 15. determinism: phase 4's and phase 8's runs again, each through run_golden
+     in a fresh process (the two at once, started after phase 3d and done
+     before phase 3b, while the UT-MM and Replica sequences are written and
+     no time is read); at the end, results.npz's pose_est, psnr_list,
+     ssim_list, lpips_proxy_list and ate_rmse equal and the PLY files
+     byte-equal to phases 4's and 8's (both runs' ATE and PSNR printed).
 Phase 3 also holds kernel 3 at nc 6 (splatam tracking) and bundle
 adjustment's pose gradient (kernel 2's dpacked chained through the
 projection into the pose) against the plain chain; every path's
@@ -308,7 +319,7 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
 
     from mm3dgs_slam_torch.ops import composite as plain
     from mm3dgs_slam_torch.ops import kernels
-    from mm3dgs_slam_torch.ops.binning import build_bins
+    from mm3dgs_slam_torch.ops.binning import build_bins, build_slots
     from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
     from mm3dgs_slam_torch.ops.render import (background, effective_scales, means_cam_soa,
                                               pose_grads_from_partials, project_for_pose)
@@ -373,35 +384,71 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
                      max_abs_err=worst, ms=t_k[nc], plain_ms=t_p[nc], bound_ms=b,
                      bound_by=by, library_ms=None))
 
-    # kernel 2: dpacked for loss = sum(w * acc) + sum(w_t * tfin), w ~ N(0, 1)
+    # kernel 2: dpacked for loss = sum(w * acc) + sum(w_t * tfin), w ~ N(0, 1),
+    # launched twice (the same bits); its per-slot rows and dpacked against
+    # the plain passes, each pass timed alone and the two together
     nc = bwd_nc  # the mapping width
+    nf = 6 + nc
     acc, tfin = kernels.composite_fwd(packed, *args, nc)
     dacc = torch.randn(acc.shape, generator=gen, device=device)
     dtfin = torch.randn(tfin.shape, generator=gen, device=device)
     gargs = (packed, *args[:3], acc, tfin, dacc, dtfin, rs.cam, nc)
+    slots = build_slots(bins.pair_gauss, n)
     counter = new_work()
-    d_k = kernels.composite_bwd(*gargs, work=counter)
-    d_p = plain.composite_bwd_plain(*gargs)
+    rows_k = kernels.composite_bwd_rows(*gargs, work=counter)
+    rows_k2 = kernels.composite_bwd_rows(*gargs)
+    d_k = kernels.slot_reduce(rows_k, slots, n)
+    # the second launch of both passes through the composed wrapper
+    d_k2 = kernels.composite_bwd(*gargs, slots=slots)
+    same = torch.equal(d_k, d_k2) and torch.equal(rows_k, rows_k2)
+    rows_p = plain.composite_bwd_pairs_plain(*gargs)
+    d_p = plain.slot_reduce_plain(rows_p, slots, n)
     scale = float(d_p.abs().max())
+    err_r, ok_r = max_violation(rows_k, rows_p, **GRAD_TOL)
     err, ok = max_violation(d_k, d_p, **GRAD_TOL)
+    # the reduce on the kernel's rows: the plain reduce's adds, in its order
+    red_eq = torch.equal(d_k, plain.slot_reduce_plain(rows_k, slots, n))
     check_work(f"kernel 2 nc={nc}", counter, work, tag)
-    tk = cuda_ms(lambda: kernels.composite_bwd(*gargs), 10)
-    tp = cuda_ms(lambda: plain.composite_bwd_plain(*gargs), 1, warm=0)
-    # out: the 6 + nc gradient fields of every row (the rest of dpacked is zero)
-    bwd_bytes = 4 * (n_seen * (6 + nc) + n_pairs + 2 * n_tiles
-                     + n_pix * (2 * nc + 2) + n * (6 + nc))
-    b, by = bound_ms(bwd_bytes, n_pix * OPS_PIX_BWD(nc) + evaluated * OPS_TEST
-                     + used * OPS_BWD_USE(nc) + pairs_used * (6 + nc))
-    print(f"[{tag}] kernel 2 nc={nc}: dpacked max abs err {err:.3e} (max |dpacked| "
-          f"{scale:.3e}) ({'ok' if ok else 'FAIL'}); kernel {tk:.4f} ms, "
-          f"plain {tp:.1f} ms, bound {b:.4f} ms ({by})", flush=True)
-    if not ok:
+    t_both = cuda_ms(lambda: kernels.composite_bwd(*gargs, slots=slots), 10)
+    t_rows = cuda_ms(lambda: kernels.composite_bwd_rows(*gargs), 10)
+    t_red = cuda_ms(lambda: kernels.slot_reduce(rows_k, slots, n), 10)
+    idx, dst = bins.pair_gauss.long(), torch.zeros((n, nf), device=device)
+    t_lib = cuda_ms(lambda: dst.index_add_(0, idx, rows_k), 10)
+    tp = cuda_ms(lambda: plain.composite_bwd_pairs_plain(*gargs), 1, warm=0)
+    tp_red = cuda_ms(lambda: plain.slot_reduce_plain(rows_k, slots, n), 1, warm=0)
+    # pass 1 writes the rows [P, 6 + nc]; pass 2 reads them and the slot
+    # table and writes dpacked; kernel 2 as a whole does both
+    rows_bytes = 4 * (n_seen * nf + n_pairs + 2 * n_tiles + n_pix * (2 * nc + 2) + n_pairs * nf)
+    rows_ops = n_pix * OPS_PIX_BWD(nc) + evaluated * OPS_TEST + used * OPS_BWD_USE(nc)
+    red_bytes, red_ops = 4 * (n_pairs * nf + n + 1 + n_pairs + 16 * n), pairs_used * nf
+    b, by = bound_ms(rows_bytes, rows_ops)
+    b_red, by_red = bound_ms(red_bytes, red_ops)
+    b_both, by_both = bound_ms(rows_bytes + red_bytes, rows_ops + red_ops)
+    print(f"[{tag}] kernel 2 nc={nc}: per-slot rows [{n_pairs}, {nf}] max abs err {err_r:.3e} "
+          f"({'ok' if ok_r else 'FAIL'}), dpacked max abs err {err:.3e} (max |dpacked| "
+          f"{scale:.3e}) ({'ok' if ok else 'FAIL'}); two launches "
+          f"{'bit-equal' if same else 'DIFFER'}; the reduce of the kernel's rows "
+          f"{'bit-equal to' if red_eq else 'DIFFERS from'} the plain reduce's; both passes "
+          f"{t_both:.4f} ms (bound {b_both:.4f}, {by_both}), rows {t_rows:.4f} ms (bound "
+          f"{b:.4f}, {by}), reduce {t_red:.4f} ms (bound {b_red:.4f}, {by_red}; index_add_ "
+          f"{t_lib:.4f} ms); plain rows {tp:.1f} ms, plain reduce {tp_red:.1f} ms", flush=True)
+    if not (ok and ok_r):
         fail("kernel 2 disagrees with its plain version")
+    if not (same and red_eq):
+        fail("kernel 2 is not bit-identical from launch to launch, or its reduce differs "
+             "from the plain reduce's adds")
     rows.append(dict(name="composite_bwd", route="cuda",
                      source="mm3dgs_slam_torch/csrc/composite_bwd.cu",
                      replaces="mm3dgs_slam_tpu/ops/pallas_composite.py:626",
-                     max_abs_err=err, ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
-                     library_ms=None))
+                     max_abs_err=err_r, ms=t_rows, plain_ms=tp, bound_ms=b, bound_by=by,
+                     library_ms=None, dpacked_max_abs_err=err, both_passes=dict(
+                         ms=t_both, bound_ms=b_both, bound_by=by_both), bit_identical=same))
+    rows.append(dict(name="slot_reduce", route="cuda",
+                     source="mm3dgs_slam_torch/csrc/composite_bwd.cu",
+                     replaces="mm3dgs_slam_tpu/ops/pallas_composite.py:1105",
+                     max_abs_err=float((d_k - plain.slot_reduce_plain(rows_k, slots, n)).abs()
+                                       .max()), ms=t_red, plain_ms=tp_red, bound_ms=b_red,
+                     bound_by=by_red, library_ms=t_lib))
 
     # kernel 3: the per-tile partials, then dq and dT, at each tracking width
     # (nc 5 vigs/mm3dgs, nc 6 splatam); the row holds the first width's
@@ -472,7 +519,7 @@ def check_windows(scene, worlds=(2, 7), tag="check 3d"):
 
     from mm3dgs_slam_torch.ops import composite as plain
     from mm3dgs_slam_torch.ops import kernels
-    from mm3dgs_slam_torch.ops.binning import build_bins
+    from mm3dgs_slam_torch.ops.binning import build_bins, build_slots
     from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
     from mm3dgs_slam_torch.ops.render import effective_scales, means_cam_soa, project_for_pose
     from mm3dgs_slam_torch.parallel.mesh import tiles_per_shard
@@ -486,7 +533,8 @@ def check_windows(scene, worlds=(2, 7), tag="check 3d"):
             cam)], 1).contiguous()
     args = (bins.pair_gauss, bins.tile_start, bins.tile_count)
     gen = torch.Generator(device=device).manual_seed(3)
-    out = {"composite_fwd": {}, "composite_bwd": {}, "composite_pose_bwd": {}}
+    out = {"composite_fwd": {}, "composite_bwd": {}, "slot_reduce": {},
+           "composite_pose_bwd": {}}
     for world in worlds:
         tpb = tiles_per_shard(cam, world)
         n_pad = world * tpb
@@ -502,6 +550,7 @@ def check_windows(scene, worlds=(2, 7), tag="check 3d"):
                                         cam, 3)
         stitched, psums, asums, dsum = [], [], [], torch.zeros_like(dpacked)
         res = {k: dict(ms=[], bound_ms=[], bound_by=[], max_abs_err=0.0) for k in out}
+        res["composite_bwd"]["both_ms"] = []
         for r in range(world):
             lo, sl = r * tpb, slice(r * tpb, (r + 1) * tpb)
             wb = build_bins(proj, cam, lo, tpb)
@@ -521,37 +570,53 @@ def check_windows(scene, worlds=(2, 7), tag="check 3d"):
             e_p, ok_p = max_violation(pk, pp, atol=PARTIAL_ATOL * asum, rtol=GRAD_TOL["rtol"])
             a3, t3 = kernels.composite_fwd(packed, *wargs, 3, **win)
             ba = (packed, *wargs[:3], a3, t3, d3[sl], dt[sl], cam, 3)
-            dk = kernels.composite_bwd(*ba, **win)
-            e_b, ok_b = max_violation(dk, plain.composite_bwd_plain(*ba, **win), **GRAD_TOL)
-            if not (ok_f and ok_p and ok_b):
+            slots = build_slots(wb.pair_gauss, packed.shape[0])
+            rk = kernels.composite_bwd_rows(*ba, **win)
+            rk2 = kernels.composite_bwd_rows(*ba, **win)
+            dk = kernels.slot_reduce(rk, slots, packed.shape[0], windowed=True)
+            dk2 = kernels.composite_bwd(*ba, **win, slots=slots)
+            rp = plain.composite_bwd_pairs_plain(*ba, **win)
+            e_b, ok_b = max_violation(dk, plain.slot_reduce_plain(rp, slots, packed.shape[0]),
+                                      **GRAD_TOL)
+            e_r, ok_r = max_violation(rk, rp, **GRAD_TOL)
+            same = torch.equal(dk, dk2) and torch.equal(rk, rk2)
+            if not (ok_f and ok_p and ok_b and ok_r):
                 fail(f"{tag}: W={world} window {r}: a windowed kernel disagrees with its plain "
-                     f"version (errors {e_f:.3e}, {e_b:.3e}, {e_p:.3e})")
+                     f"version (errors {e_f:.3e}, {e_b:.3e} (rows {e_r:.3e}), {e_p:.3e})")
+            if not same:
+                fail(f"{tag}: W={world} window {r}: two launches of kernel 2 differ")
             stitched.append(torch.cat([a, t], 1))
             psums.append(pk)
             asums.append(asum)
             dsum += dk
+            n_all = packed.shape[0]
             times = (cuda_ms(lambda: kernels.composite_fwd(packed32, *wargs, 5, **win), 10),
-                     cuda_ms(lambda: kernels.composite_bwd(*ba, **win), 10),
+                     cuda_ms(lambda: kernels.composite_bwd_rows(*ba, **win), 10),
+                     cuda_ms(lambda: kernels.slot_reduce(rk, slots, n_all), 10),
                      cuda_ms(lambda: kernels.composite_pose_bwd(*pa, **win), 10))
+            t_both = cuda_ms(lambda: kernels.composite_bwd(*ba, **win, slots=slots), 10)
             bounds = (
                 bound_ms(4 * (n_seen * 11 + n_pairs + 2 * tpb + n_pix * 6),
                          ev * OPS_TEST + used * OPS_FWD_USE(5)),
-                bound_ms(4 * (n_seen * 9 + n_pairs + 2 * tpb + n_pix * 8 + packed.shape[0] * 9),
-                         n_pix * OPS_PIX_BWD(3) + ev * OPS_TEST + used * OPS_BWD_USE(3) + pu * 9),
+                bound_ms(4 * (n_seen * 9 + n_pairs + 2 * tpb + n_pix * 8 + n_pairs * 9),
+                         n_pix * OPS_PIX_BWD(3) + ev * OPS_TEST + used * OPS_BWD_USE(3)),
+                bound_ms(4 * (n_pairs * 9 + n_all + 1 + n_pairs + 16 * n_all), pu * 9),
                 bound_ms(4 * (n_seen * 23 + n_pairs + 2 * tpb + n_pix * 12 + tpb * 12),
                          n_pix * OPS_PIX_BWD(5) + ev * OPS_TEST + used * OPS_POSE_USE(5)
                          + pu * OPS_POSE_PAIR(5)))
-            for k, tk, (b, by), e in zip(out, times, bounds, (e_f, e_b, e_p)):
+            res["composite_bwd"]["both_ms"].append(t_both)
+            for k, tk, (b, by), e in zip(out, times, bounds, (e_f, e_r, e_b, e_p)):
                 res[k]["ms"].append(tk)
                 res[k]["bound_ms"].append(b)
                 res[k]["bound_by"].append(by)
                 res[k]["max_abs_err"] = max(res[k]["max_abs_err"], e)
             print(f"[{tag}] W={world} window {r} (tiles {lo}-{lo + tpb - 1}, {n_tiles_w} in the "
                   f"grid, {n_pairs} pairs): kernel 1 nc=5 {times[0]:.4f} ms (bound "
-                  f"{bounds[0][0]:.4f}), kernel 2 nc=3 {times[1]:.4f} ms (bound "
-                  f"{bounds[1][0]:.4f}), kernel 3 nc=5 {times[2]:.4f} ms (bound "
-                  f"{bounds[2][0]:.4f}); max abs err against the windowed plain versions "
-                  f"{e_f:.3e}, {e_b:.3e}, {e_p:.3e} (ok)", flush=True)
+                  f"{bounds[0][0]:.4f}), kernel 2 nc=3 both passes {t_both:.4f} ms, rows "
+                  f"{times[1]:.4f} ms (bound {bounds[1][0]:.4f}), reduce {times[2]:.4f} ms (bound "
+                  f"{bounds[2][0]:.4f}), two launches bit-equal; kernel 3 nc=5 {times[3]:.4f} ms "
+                  f"(bound {bounds[3][0]:.4f}); max abs err against the windowed plain versions "
+                  f"{e_f:.3e}, {e_r:.3e} (rows) / {e_b:.3e} (dpacked), {e_p:.3e} (ok)", flush=True)
         st, ps = torch.cat(stitched), torch.cat(psums)
         diff_f = float((st[:whole] - torch.cat([acc5, tfin5], 1)).abs().max())
         diff_p = float((ps[:whole] - psum).abs().max())
@@ -574,6 +639,7 @@ def check_windows(scene, worlds=(2, 7), tag="check 3d"):
         for k in out:
             out[k][f"W{world}"] = dict(res[k], ms_sum=sum(res[k]["ms"]),
                                        ms_max=max(res[k]["ms"]))
+        out["composite_bwd"][f"W{world}"]["bit_identical"] = True
         out["composite_fwd"][f"W{world}"]["bit_equal_to_whole"] = eq_f
         out["composite_pose_bwd"][f"W{world}"]["bit_equal_to_whole"] = eq_p
         out["composite_bwd"][f"W{world}"]["summed_err_to_whole"] = e_d
@@ -990,6 +1056,64 @@ def check_eval_clis(cfg):
              f"{worst} levels from the GT colour")
 
 
+def start_reruns(runs, tmp):
+    """Phase 15, first half: each (tag, config, scene .npz) of `runs` run
+    through run_golden in a fresh process with its output under `tmp` (the
+    runs at once, sharing the card, while the caller writes the recorded
+    sequences, where no time is read). Returns the runs for wait_reruns and
+    compare_reruns; the processes are killed if the script exits first."""
+    import atexit
+
+    import yaml
+
+    started = []
+    for tag, cfg, scene in runs:
+        out = Path(tmp) / f"rerun_{tag}"
+        yml = Path(tmp) / f"rerun_{tag}.yml"
+        yml.write_text(yaml.safe_dump(dict(cfg, outputdir=str(out))))
+        log = open(Path(tmp) / f"rerun_{tag}.log", "w")
+        p = subprocess.Popen([sys.executable, "-m", "mm3dgs_slam_torch.scripts.run_golden",
+                              "--config", str(yml), "--scene", scene], cwd=ROOT, stdout=log,
+                             stderr=subprocess.STDOUT)
+        log.close()
+        started.append((tag, Path(cfg["outputdir"]), out, p))
+    atexit.register(lambda: [p.kill() for *_, p in started if p.poll() is None])
+    return started, time.perf_counter()
+
+
+def wait_reruns(reruns):
+    """Wait for start_reruns's processes (900 s in all); each must exit 0."""
+    started, t0 = reruns
+    for tag, _, out, p in started:
+        try:
+            code = p.wait(timeout=max(1.0, 900.0 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            fail(f"rerun {tag}: no result within 900 s")
+        if code != 0:
+            print(Path(f"{out}.log").read_text()[-6000:], file=sys.stderr)
+            fail(f"rerun {tag}: run_golden exited {code}")
+    print(f"[rerun] {len(started)} runs in fresh processes done {time.perf_counter() - t0:.1f} s "
+          f"after their start", flush=True)
+
+
+def compare_reruns(reruns):
+    """Phase 15, second half, once the first runs exist: each rerun the same
+    bits as its first run (diff_results.same_bits: results.npz's pose_est,
+    psnr_list, ssim_list, lpips_proxy_list and ate_rmse np.array_equal, the
+    PLY files byte-equal). Prints both runs' ATE and PSNR first."""
+    from mm3dgs_slam_torch.scripts.diff_results import same_bits
+
+    for tag, first, out, _ in reruns[0]:
+        a = np.load(first / "results.npz", allow_pickle=True)
+        b = np.load(out / "results.npz", allow_pickle=True)
+        print(f"[rerun] {tag}: first run ATE {float(a['ate_rmse'])!r} m, PSNR "
+              f"{float(np.mean(a['psnr_list']))!r} dB; rerun in a fresh process ATE "
+              f"{float(b['ate_rmse'])!r} m, PSNR {float(np.mean(b['psnr_list']))!r} dB; "
+              f"the same bits:", flush=True)
+        if not same_bits(str(first), str(out)):
+            fail(f"rerun {tag}: the rerun differs from the first run")
+
+
 def imu_seed_errors(slam, tag, camera_centers):
     """Gate and print an IMU-seeded run's seeds: every frame after frame 0
     seeded, and on frames 2 on (frame 1 seeds a zero velocity) the IMU seed's
@@ -1090,12 +1214,13 @@ def main() -> int:
     # phase 2: build
     t0 = time.perf_counter()
     kernels.build_kernels()
-    print(f"[build] {time.perf_counter() - t0:.1f} s for {len(kernels.KERNELS)} kernels "
-          f"(nvcc in parallel)", flush=True)
-    for k in kernels.KERNELS:
-        for line in k.ptxas_log.splitlines():
+    sources = {k.source: k.ptxas_log for k in kernels.KERNELS}
+    print(f"[build] {time.perf_counter() - t0:.1f} s for {len(kernels.KERNELS)} entry points "
+          f"in {len(sources)} sources (nvcc in parallel)", flush=True)
+    for source, log in sources.items():
+        for line in log.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"[build] {k.source}: {line.strip()}")
+                print(f"[build] {source}: {line.strip()}")
 
     from mm3dgs_slam_torch.data.synthetic_recorded import (write_synthetic_replica,
                                                            write_synthetic_tum)
@@ -1122,6 +1247,18 @@ def main() -> int:
     del scene
 
     with tempfile.TemporaryDirectory() as tmp:
+        # the configs of phases 4 and 8, whose runs phase 15 repeats in fresh
+        # processes: started here, while the UT-MM and Replica sequences are
+        # written
+        cfg = run_golden.golden_config(str(ROOT / "configs" / "synthetic_tum.yml"),
+                                       str(Path(tmp) / "out_main"), decomp=True,
+                                       frames=N_FRAMES)
+        bcfg = load_config(str(ROOT / "configs" / "synthetic_tum.yml"))
+        bcfg["synthetic"]["n_frames"] = N_FRAMES
+        bcfg.update(outputdir=str(Path(tmp) / "out_ba"), save_iterations=[3])
+        bcfg["mapping"]["do_BA"] = True
+        reruns = start_reruns([("main", cfg, scene_npz), ("ba", bcfg, scene_npz)], tmp)
+
         # the UT-MM sequence of phases 3b and 5, at UTMM.yml's native size
         ucfg = load_config(str(ROOT / "configs" / "UTMM.yml"))
         ucfg.update(inputdir=str(Path(tmp) / "utmm"), scene="synthetic",
@@ -1134,17 +1271,6 @@ def main() -> int:
         print(f"[utmm] wrote {UTMM_FRAMES} frames at {ucfg['cam']['image_width']}x"
               f"{ucfg['cam']['image_height']} ({UTMM_GAUSSIANS} gaussians, 30 fps, 100 Hz "
               f"IMU) in {time.perf_counter() - t0:.1f} s", flush=True)
-
-        # phase 3b: the kernels at 640x330, at the widths of the UT-MM path
-        u0, u1, ucam = dataset_frames(ucfg)
-        urs = RenderSettings(cam=ucam, force_isotropic=ucfg["pipeline"]["force_isotropic"])
-        urows = check_kernels(check_scene((u0, u1), urs, device), fwd_ncs=(4, 5), bwd_nc=4,
-                              pose_ncs=(5,), tag="check 640x330")
-        for k, u in zip(rows, urows):
-            k["utmm_640x330"] = {key: u[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                                          "bound_ms", "bound_by")}
-            k["utmm_640x330"]["nc"] = {"composite_fwd": 5, "composite_bwd": 4,
-                                       "composite_pose_bwd": 5}[k["name"]]
 
         # the Replica sequence of phases 3c and 10, at replica.yml's native
         # 1200x680 (the loader reads it at 600x340)
@@ -1160,6 +1286,20 @@ def main() -> int:
               f"{rcfg['cam']['image_height']} ({RECORDED_GAUSSIANS} gaussians, JPEG) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+        # the reruns of phase 15 end before any time is read again
+        wait_reruns(reruns)
+
+        # phase 3b: the kernels at 640x330, at the widths of the UT-MM path
+        u0, u1, ucam = dataset_frames(ucfg)
+        urs = RenderSettings(cam=ucam, force_isotropic=ucfg["pipeline"]["force_isotropic"])
+        urows = check_kernels(check_scene((u0, u1), urs, device), fwd_ncs=(4, 5), bwd_nc=4,
+                              pose_ncs=(5,), tag="check 640x330")
+        for k, u in zip(rows, urows):
+            k["utmm_640x330"] = {key: u[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                          "bound_ms", "bound_by")}
+            k["utmm_640x330"]["nc"] = {"composite_fwd": 5, "composite_bwd": 4,
+                                       "slot_reduce": 4, "composite_pose_bwd": 5}[k["name"]]
+
         # phase 3c: the kernels at 600x340, with its partial tile column
         t0 = time.perf_counter()
         r0, r1, rcam = dataset_frames(rcfg)
@@ -1169,15 +1309,12 @@ def main() -> int:
             k["replica_600x340"] = {key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                                              "bound_ms", "bound_by")}
             k["replica_600x340"]["nc"] = {"composite_fwd": 5, "composite_bwd": 4,
-                                          "composite_pose_bwd": 5}[k["name"]]
+                                          "slot_reduce": 4, "composite_pose_bwd": 5}[k["name"]]
         print(f"[check 600x340] {time.perf_counter() - t0:.1f} s", flush=True)
 
         # phase 4: the main path, through run_golden on the JAX package's
         # scene of synthetic_tum.yml, with the frame decomposition
         on_scene = lambda c, dev: run(c, dev, scene=scene_npz)  # noqa: E731
-        cfg = run_golden.golden_config(str(ROOT / "configs" / "synthetic_tum.yml"),
-                                       str(Path(tmp) / "out_main"), decomp=True,
-                                       frames=N_FRAMES)
         rebins = count_map_rebins()
         launches, main_slam, _ = drive(on_scene, kernels, "main", cfg, ate_max=0.03,
                                        psnr_min=17.0, extra_keys=DECOMP_KEYS)
@@ -1225,10 +1362,6 @@ def main() -> int:
 
         # phase 8: bundle adjustment, a checkpoint at frame 3, then the
         # port resumed from it
-        bcfg = load_config(str(ROOT / "configs" / "synthetic_tum.yml"))
-        bcfg["synthetic"]["n_frames"] = N_FRAMES
-        bcfg.update(outputdir=str(Path(tmp) / "out_ba"), save_iterations=[3])
-        bcfg["mapping"]["do_BA"] = True
         rebins[0] = 0
         ba, bslam, _ = drive(on_scene, kernels, "ba", bcfg, ate_max=0.03, psnr_min=17.0)
         ba_ms_it = float(np.load(Path(bcfg["outputdir"]) / "results.npz")["avg_mapping_it_time"])
@@ -1265,6 +1398,9 @@ def main() -> int:
 
         # phase 13: the tools on phase 4's run
         check_tools(cfg, main_slam, scene_npz, tmp, kernels)
+
+        # phase 15: phase 4's and phase 8's runs against their reruns
+        compare_reruns(reruns)
 
     paths = {"synthetic_tum": launches, "utmm": utmm, "utmm_prior": prior, "mono": mono,
              "splatam": splatam, "ba": ba, "tum": tum, "replica": replica,

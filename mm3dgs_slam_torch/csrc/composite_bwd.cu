@@ -1,34 +1,43 @@
-// Kernel 2: tile compositing backward for mapping (per-gaussian gradients).
+// Kernel 2: tile compositing backward for mapping (per-gaussian gradients),
+// in two passes, each adding its floats in a fixed order.
 //
 // Replaces the TPU kernel `_bwd_kernel` (mm3dgs_slam_tpu/ops/
-// pallas_composite.py, called through `_composite_pallas_bwd_rows`) together
-// with the XLA slot-table reduce `_table_reduce` that followed it: from dacc
-// and dtfin it gives dpacked [N, 16], the gradient of every gaussian's packed
-// row (xy, conic, opacity and the nc walked features; the other columns
-// stay zero). The xy columns are included because densification reads them.
+// pallas_composite.py, called through `_composite_pallas_bwd_rows`) and the
+// XLA slot-table reduce `_table_reduce` that follows it, in the same two
+// steps: from dacc and dtfin,
+//   1. `composite_bwd_rows_kernel` writes one row per (tile, pair) slot of
+//      the window, rows [P, 6 + nc]: the gradient of the pair's xy, conic,
+//      opacity and nc walked features, summed over the tile's pixels;
+//   2. `slot_reduce_kernel` gives dpacked [N, 16], row g the sum of
+//      Gaussian g's slots' rows in ascending slot order (the slot table of
+//      ops/binning.py `build_slots`); columns 6 + nc to 15 are zero.
+// The xy columns are included because densification reads them. No float
+// is added with an atomic, so dpacked is the same bits on every launch.
 //
-// Route: the front-to-back replay with a prefix accumulator, as the TPU
-// kernel's `_chunk_gradient` does. Each pixel re-walks the forward and keeps
-// A_j = sum_{k<=j} w_k (f_k . dC), so that
+// Pass 1's route: the front-to-back replay with a prefix accumulator, as the
+// TPU kernel's `_chunk_gradient` does. Each pixel re-walks the forward and
+// keeps A_j = sum_{k<=j} w_k (f_k . dC), so that
 //   dL/dalpha_j = T_j (f_j . dC) - ((C . dC) - A_j + dT_fin T_fin) / (1 - alpha_j)
 // with C = acc the pixel's composite. The 0.99 clamp is straight-through.
+// The walk is kernel 1's warp-culled one (composite_common.cuh: an 8x4
+// pixel box per warp, a warp visits only the pairs its box may use, two at
+// a time). A warp where a lane used the pair sums the 6 + nc gradients over
+// its lanes with a reduce-scatter (16 shuffles for all fields, against 5 per
+// field for a butterfly), after which lane 2k holds field k, and stores them
+// in its own slice of a shared stash [NWARP][HALF][6 + nc]. The stash holds
+// half a batch (HALF pairs: the whole batch would need 80 KB at nc 4 and
+// halve the blocks an SM holds): after the warps have walked a half, one
+// thread per (pair, field) adds the 8 warps' partials in warp order, writes
+// the slot's row and zeroes the stash for the next half. Slots past the
+// block's stop (all its pixels saturated) get zero rows.
 //
-// Bound on an H100: instruction issue and shuffles, not bytes. Besides the
-// forward walk, each used pixel-pair costs ~40 more f32 operations, and each
-// pair's 6 + nc field gradients are summed over the pixels that used it. The
-// walk is kernel 1's warp-culled one (composite_common.cuh: an 8x4 pixel box
-// per warp, a warp visits only the pairs its box may use, two at a time).
-// There is no block-level reduction: a warp where a lane used the pair sums
-// the 6 + nc gradients over its lanes and adds them straight into the
-// pair's dpacked row with global atomics. The sum is a reduce-scatter (16
-// shuffles for all fields, against 5 per field for a butterfly: the SM
-// shuffles one warp-instruction per clock), after which lane 2k holds field
-// k and the lanes add their fields in one scalar atomic instruction. The
-// only barriers are the two per batch load. Float atomics add in no fixed
-// order, so dpacked is not bit-identical from run to run.
+// Bound on an H100: instruction issue and shuffles in pass 1, not bytes;
+// pass 2 reads each slot's row once, scattered, and writes dpacked once.
 #include "composite_common.cuh"
 
 using namespace mm3dgs;
+
+constexpr int HALF = PIX / 2;  // pairs of a batch walked between two flushes of the stash
 
 // Sum over the warp of v[0..15]: lane l gets the sum of v[(l >> 1) & 15].
 // Each step halves the slots a lane keeps and swaps the other half with
@@ -56,33 +65,35 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[16], int lane) {
 
 template <int NC>
 __global__ void __launch_bounds__(PIX)
-composite_bwd_kernel(const float* __restrict__ packed, int ld,
-                     const int* __restrict__ pair_gauss,
-                     const int* __restrict__ tile_start,
-                     const int* __restrict__ tile_count, int tile_lo,
-                     int n_tiles, int tiles_x,
-                     const float* __restrict__ acc,
-                     const float* __restrict__ tfin,
-                     const float* __restrict__ dacc,
-                     const float* __restrict__ dtfin,
-                     float* __restrict__ dpacked,
-                     unsigned long long* __restrict__ work) {
+composite_bwd_rows_kernel(const float* __restrict__ packed, int ld,
+                          const int* __restrict__ pair_gauss,
+                          const int* __restrict__ tile_start,
+                          const int* __restrict__ tile_count, int tile_lo,
+                          int n_tiles, int tiles_x,
+                          const float* __restrict__ acc,
+                          const float* __restrict__ tfin,
+                          const float* __restrict__ dacc,
+                          const float* __restrict__ dtfin,
+                          float* __restrict__ rows,
+                          unsigned long long* __restrict__ work) {
   constexpr int NF = F_FEAT + NC;  // fields read = fields with a gradient
   static_assert(NF <= 4 * NV, "the row's float4s read hold the fields");
   __shared__ float4 s_row[NV][PIX];
   __shared__ unsigned char s_mask[PIX];
-  __shared__ int s_g[PIX];
+  extern __shared__ float s_part[];  // [NWARP][HALF][NF], zero outside a half's walk
 
   const int lt = blockIdx.x;  // window-local tile (see composite_fwd.cu)
   const int tile = tile_lo + lt;
-  if (tile >= n_tiles) return;  // the window's pad: no pairs, no gradient
-  const int lane = threadIdx.x % 32;
-  const int pix = tile_pixel(threadIdx.x / 32, lane);
+  if (tile >= n_tiles) return;  // the window's pad: no pairs
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pix = tile_pixel(warp, lane);
   const int x0 = (tile % tiles_x) * TILE, y0 = (tile / tiles_x) * TILE;
   const float px = (float)(x0 + pix % TILE);
   const float py = (float)(y0 + pix / TILE);
   const int start = tile_start[lt];
   const int count = tile_count[lt];
+  float* out = rows + (size_t)start * NF;  // the tile's slots
+  for (int e = threadIdx.x; e < NWARP * HALF * NF; e += PIX) s_part[e] = 0.0f;
 
   float dC[NC];
   float cdc = 0.0f;
@@ -97,80 +108,138 @@ composite_bwd_kernel(const float* __restrict__ packed, int ld,
   float T = 1.0f;
   float A = 0.0f;
   int done = 0, kept = 0, walked = 0;
-  for (int base = 0; base < count; base += PIX) {
+  int base = 0;
+  for (; base < count; base += PIX) {
     if (__syncthreads_count(done) == PIX) break;
     const int n = min(PIX, count - base);
-    kept += load_batch(packed, ld, pair_gauss + start + base, n, x0, y0, s_row, s_mask, s_g);
+    kept += load_batch(packed, ld, pair_gauss + start + base, n, x0, y0, s_row, s_mask,
+                       nullptr);
     __syncthreads();
-    walked += walk_batch(s_row, s_mask, n, px, py, done, [&](int i, const Pair& p) {
-      float v[16];
+    for (int h = 0; h < n; h += HALF) {
+      const int nh = min(HALF, n - h);
+      walked += walk_range(s_row, s_mask, h, h + nh, px, py, done, [&](int i, const Pair& p) {
+        float v[16];
 #pragma unroll
-      for (int k = 0; k < 16; ++k) v[k] = 0.0f;
-      bool use = false;
-      if (!done && p.hit) {
-        const float test_T = T * (1.0f - p.alpha);
-        if (test_T < 1e-4f) {
-          done = 1;
-        } else {
-          use = true;
-          const float c0 = p.f[F_C0], c1 = p.f[F_C1], c2 = p.f[F_C2];
-          const float dx = p.dx, dy = p.dy, alpha = p.alpha;
-          const float w = alpha * T;
-          float fdc = 0.0f;
+        for (int k = 0; k < 16; ++k) v[k] = 0.0f;
+        bool use = false;
+        if (!done && p.hit) {
+          const float test_T = T * (1.0f - p.alpha);
+          if (test_T < 1e-4f) {
+            done = 1;
+          } else {
+            use = true;
+            const float c0 = p.f[F_C0], c1 = p.f[F_C1], c2 = p.f[F_C2];
+            const float dx = p.dx, dy = p.dy, alpha = p.alpha;
+            const float w = alpha * T;
+            float fdc = 0.0f;
 #pragma unroll
-          for (int c = 0; c < NC; ++c) fdc += p.f[F_FEAT + c] * dC[c];
-          A += w * fdc;
-          const float dalpha = T * fdc - (cdc - A + tail) / (1.0f - alpha);
-          const float dop = p.expp * dalpha;
-          const float dpower = p.f[F_OP] * dop;
-          v[F_X] = -(c0 * dx + c1 * dy) * dpower;
-          v[F_Y] = -(c2 * dy + c1 * dx) * dpower;
-          v[F_C0] = -0.5f * dx * dx * dpower;
-          v[F_C1] = -dx * dy * dpower;
-          v[F_C2] = -0.5f * dy * dy * dpower;
-          v[F_OP] = dop;
+            for (int c = 0; c < NC; ++c) fdc += p.f[F_FEAT + c] * dC[c];
+            A += w * fdc;
+            const float dalpha = T * fdc - (cdc - A + tail) / (1.0f - alpha);
+            const float dop = p.expp * dalpha;
+            const float dpower = p.f[F_OP] * dop;
+            v[F_X] = -(c0 * dx + c1 * dy) * dpower;
+            v[F_Y] = -(c2 * dy + c1 * dx) * dpower;
+            v[F_C0] = -0.5f * dx * dx * dpower;
+            v[F_C1] = -dx * dy * dpower;
+            v[F_C2] = -0.5f * dy * dy * dpower;
+            v[F_OP] = dop;
 #pragma unroll
-          for (int c = 0; c < NC; ++c) v[F_FEAT + c] = w * dC[c];
-          T = test_T;
+            for (int c = 0; c < NC; ++c) v[F_FEAT + c] = w * dC[c];
+            T = test_T;
+          }
         }
+        if (!__any_sync(FULL, use)) return;
+        const float sum = warp_reduce_scatter(v, lane);
+        if (lane % 2 == 0 && lane / 2 < NF) s_part[(warp * HALF + i - h) * NF + lane / 2] = sum;
+      });
+      __syncthreads();
+      // each (pair, field) of the half: the warps' partials in warp order
+      for (int e = threadIdx.x; e < nh * NF; e += PIX) {
+        float s = 0.0f;
+#pragma unroll
+        for (int w = 0; w < NWARP; ++w) {
+          s += s_part[w * HALF * NF + e];
+          s_part[w * HALF * NF + e] = 0.0f;
+        }
+        out[(size_t)(base + h) * NF + e] = s;
       }
-      if (!__any_sync(FULL, use)) return;
-      float* dst = dpacked + (size_t)s_g[i] * 16;
-      const float sum = warp_reduce_scatter(v, lane);
-      if (lane % 2 == 0 && lane / 2 < NF) atomicAdd(dst + lane / 2, sum);
-    });
+      __syncthreads();
+    }
   }
+  // the slots past the block's stop: no pixel uses them
+  for (int e = base * NF + threadIdx.x; e < count * NF; e += PIX) out[e] = 0.0f;
   add_work(work, kept, walked);
 }
 
-template <int NC>
-static void launch(const float* packed, int ld, const int* pair_gauss,
-                   const int* tile_start, const int* tile_count, int tile_lo,
-                   int n_local, int n_tiles, int tiles_x, const float* acc,
-                   const float* tfin, const float* dacc, const float* dtfin,
-                   float* dpacked, unsigned long long* work, cudaStream_t s) {
-  composite_bwd_kernel<NC><<<n_local, PIX, 0, s>>>(
-      packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_tiles, tiles_x,
-      acc, tfin, dacc, dtfin, dpacked, work);
+// One thread per (gaussian, column) of dpacked: column k < nf adds the
+// gaussian's slots' rows in ascending slot order from 0; the others are 0.
+__global__ void __launch_bounds__(256)
+slot_reduce_kernel(const float* __restrict__ rows, int nf,
+                   const int* __restrict__ gauss_start,
+                   const int* __restrict__ gauss_slot, int n,
+                   float* __restrict__ dpacked) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 16LL * n) return;
+  const int g = (int)(t / 16), k = (int)(t % 16);
+  float s = 0.0f;
+  if (k < nf) {
+    const int e = __ldg(gauss_start + g + 1);
+    for (int j = __ldg(gauss_start + g); j < e; ++j)
+      s += __ldg(rows + (size_t)__ldg(gauss_slot + j) * nf + k);
+  }
+  dpacked[t] = s;
 }
 
-// dpacked [N, 16] must be zeroed and 16-B aligned by the caller; the
-// window's tiles add into the rows of every Gaussian they walk. packed, the
-// window and work as for mm3dgs_composite_fwd. Returns cudaGetLastError().
-extern "C" int mm3dgs_composite_bwd(const float* packed, int ld,
-                                    const int* pair_gauss,
-                                    const int* tile_start,
-                                    const int* tile_count, int tile_lo,
-                                    int n_local, int n_tiles,
-                                    int tiles_x, int nc, const float* acc,
-                                    const float* tfin, const float* dacc,
-                                    const float* dtfin, float* dpacked,
-                                    unsigned long long* work, void* stream) {
+template <int NC>
+static int launch_rows(const float* packed, int ld, const int* pair_gauss,
+                       const int* tile_start, const int* tile_count, int tile_lo,
+                       int n_local, int n_tiles, int tiles_x, const float* acc,
+                       const float* tfin, const float* dacc, const float* dtfin,
+                       float* rows, unsigned long long* work, cudaStream_t s) {
+  constexpr size_t smem = sizeof(float) * NWARP * HALF * (F_FEAT + NC);
+  // the stash and the static buffers pass the 48 KB a block gets unasked;
+  // opted in once per width and process (each process of the port drives
+  // one card), not on every launch
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      composite_bwd_rows_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  composite_bwd_rows_kernel<NC><<<n_local, PIX, smem, s>>>(
+      packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_tiles, tiles_x,
+      acc, tfin, dacc, dtfin, rows, work);
+  return (int)cudaGetLastError();
+}
+
+// Pass 1: rows [P, 6 + nc], 16-B aligned, every slot of the window written
+// (P = the sum of tile_count: the window's bins as ops/binning.py builds
+// them). packed, the window and work as for mm3dgs_composite_fwd. Returns a
+// cudaError_t.
+extern "C" int mm3dgs_composite_bwd_rows(const float* packed, int ld,
+                                         const int* pair_gauss,
+                                         const int* tile_start,
+                                         const int* tile_count, int tile_lo,
+                                         int n_local, int n_tiles,
+                                         int tiles_x, int nc, const float* acc,
+                                         const float* tfin, const float* dacc,
+                                         const float* dtfin, float* rows,
+                                         unsigned long long* work, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (nc) {  // mapping: nc 3, or 4 with the depth-estimate loss
-    case 3: launch<3>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, work, s); break;
-    case 4: launch<4>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, dacc, dtfin, dpacked, work, s); break;
+    case 3: return launch_rows<3>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, dacc, dtfin, rows, work, s);
+    case 4: return launch_rows<4>(packed, ld, pair_gauss, tile_start, tile_count, tile_lo, n_local, n_tiles, tiles_x, acc, tfin, dacc, dtfin, rows, work, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Pass 2: dpacked [n, 16] from rows [P, nf] (nf <= 16) through the slot
+// table gauss_start [n + 1], gauss_slot [P]. Returns a cudaError_t.
+extern "C" int mm3dgs_slot_reduce(const float* rows, int nf, const int* gauss_start,
+                                  const int* gauss_slot, int n, float* dpacked,
+                                  void* stream) {
+  if (nf < 1 || nf > 16) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const long long threads = 16LL * n;
+  slot_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      rows, nf, gauss_start, gauss_slot, n, dpacked);
   return (int)cudaGetLastError();
 }

@@ -154,21 +154,22 @@ __device__ __forceinline__ void read_pair(float4 (*s_row)[PIX], int i, float px,
                      p.dx, p.dy, p.expp, p.alpha);
 }
 
-// The warp walks the pairs of the batch whose mask holds its bit, in depth
-// order, calling step(i, pair) on every lane (a uniform call: step may use
-// warp collectives, and a lane that has stopped takes no pair). It takes
-// the pairs two at a time: their reads and pair_alpha do not depend on T,
-// so the two overlap, and only the steps run in order. The warp leaves the
-// batch once all its lanes have stopped. Returns the pairs walked.
+// The warp walks the pairs i in [lo, hi) of the batch (lo a multiple of 32)
+// whose mask holds its bit, in depth order, calling step(i, pair) on every
+// lane (a uniform call: step may use warp collectives, and a lane that has
+// stopped takes no pair). It takes the pairs two at a time: their reads and
+// pair_alpha do not depend on T, so the two overlap, and only the steps run
+// in order. The warp leaves the range once all its lanes have stopped.
+// Returns the pairs walked.
 template <class Step>
-__device__ __forceinline__ int walk_batch(float4 (*s_row)[PIX], const unsigned char* s_mask,
-                                          int n, float px, float py, const int& done,
+__device__ __forceinline__ int walk_range(float4 (*s_row)[PIX], const unsigned char* s_mask,
+                                          int lo, int hi, float px, float py, const int& done,
                                           Step step) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   int walked = 0;
-  for (int c = 0; c < n; c += 32) {
+  for (int c = lo; c < hi; c += 32) {
     const int i = c + lane;
-    unsigned bits = __ballot_sync(FULL, i < n && ((s_mask[i] >> warp) & 1u));
+    unsigned bits = __ballot_sync(FULL, i < hi && ((s_mask[i] >> warp) & 1u));
     while (bits) {
       if (__all_sync(FULL, done)) return walked;
       const int j0 = c + __ffs(bits) - 1;
@@ -185,6 +186,14 @@ __device__ __forceinline__ int walk_batch(float4 (*s_row)[PIX], const unsigned c
     }
   }
   return walked;
+}
+
+// walk_range over the whole batch of n pairs.
+template <class Step>
+__device__ __forceinline__ int walk_batch(float4 (*s_row)[PIX], const unsigned char* s_mask,
+                                          int n, float px, float py, const int& done,
+                                          Step step) {
+  return walk_range(s_row, s_mask, 0, n, px, py, done, step);
 }
 
 // Adds the block's boxes kept (work[0]) and (warp, pair)s walked (work[1]).

@@ -13,9 +13,16 @@ window-local `tile_start`/`tile_count`; each tile's pair list is the one
 the whole-image build gives, and tiles past the grid (the last window's
 pad) are empty.
 
-The buffers hold exactly the live pairs: no static caps, no overflow, no
-slot tables and no alignment padding (those exist for the TPU's static
-shapes). Binning is selection, not differentiated.
+The buffers hold exactly the live pairs: no static caps, no overflow and
+no alignment padding (those exist for the TPU's static shapes). Binning is
+selection, not differentiated.
+
+`build_slots` gives the mapping backward's slot table (JAX `small_slots` /
+`big_slots` / `big_gauss`, binning.py:452-573, without their caps): each
+Gaussian's indices into `pair_gauss` in ascending order, the order in which
+kernel 2's reduce adds its per-slot gradient rows. Tracking never reads it,
+so it is built apart from the bins, once per set of bins the mapping
+backward uses.
 """
 from __future__ import annotations
 
@@ -31,6 +38,22 @@ class TileBins(NamedTuple):
     pair_gauss: torch.Tensor  # [P] int32 gaussian row, (tile, depth)-sorted
     tile_start: torch.Tensor  # [n_local] int32 segment start into pair_gauss
     tile_count: torch.Tensor  # [n_local] int32 segment length
+
+
+class SlotTable(NamedTuple):
+    gauss_start: torch.Tensor  # [N + 1] int32 segment start into gauss_slot
+    gauss_slot: torch.Tensor   # [P] int32 slots (indices into pair_gauss), by gaussian
+
+
+@torch.no_grad()
+def build_slots(pair_gauss: torch.Tensor, n: int) -> SlotTable:
+    """The slots of every one of the n Gaussians, each Gaussian's ascending:
+    gauss_slot[gauss_start[g]:gauss_start[g + 1]] are the indices where
+    pair_gauss == g. Integer ops only (a stable sort and a searchsorted), so
+    the table is the same on every build of the same bins."""
+    key, slot = torch.sort(pair_gauss, stable=True)
+    start = torch.searchsorted(key, torch.arange(n + 1, device=key.device, dtype=key.dtype))
+    return SlotTable(gauss_start=start.to(torch.int32), gauss_slot=slot.to(torch.int32))
 
 
 def gaussian_tile_rect(xy, radius, tiles_x: int, tiles_y: int):

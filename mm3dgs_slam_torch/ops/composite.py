@@ -38,12 +38,16 @@ The kernels split a tile among 8 warps, each an 8x4 pixel box (warp w at
 column w % 2, row w // 2 of the boxes), and a warp looks only at the pairs
 that `binning.box_alpha_keep` keeps for its box; `composite_fwd_plain`'s
 `count_work` counts that work the same way.
+
+Kernel 2's plain version is its two passes: `composite_bwd_pairs_plain`
+(a row per (tile, pair) slot) and `slot_reduce_plain` (each Gaussian's rows
+added in ascending slot order, the kernel's order of adds).
 """
 from __future__ import annotations
 
 import torch
 
-from .binning import alpha_tau, box_alpha_keep
+from .binning import SlotTable, alpha_tau, box_alpha_keep, build_slots
 from .camera import PIX, TILE, Camera
 
 BOX_W, BOX_H = 8, 4                       # a warp's pixel box
@@ -197,22 +201,51 @@ def _field_grads(row, dx, dy, dpower):
 
 
 @torch.no_grad()
+def composite_bwd_pairs_plain(packed, pair_gauss, tile_start, tile_count, acc, tfin,
+                              dacc, dtfin, cam: Camera, nc: int, tile_lo: int = 0,
+                              n_local: int | None = None):
+    """Kernel 2's first pass (JAX `_bwd_kernel`): the per-slot rows [P, 6 + nc],
+    row s the gradient of (tile, pair) slot s's xy, conic, opacity and nc
+    features, summed over the tile's pixels; exactly zero for a slot that
+    no pixel uses."""
+    rows = torch.zeros((pair_gauss.shape[0], 6 + nc), dtype=packed.dtype, device=packed.device)
+    for r, (valid, g, row, dx, dy, dpower, dop, w) in enumerate(_replay(
+            packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc, dtfin,
+            cam, nc, tile_lo, n_local)):
+        dfeat = torch.sum(w[:, None, :] * dacc, dim=2)           # [T, nc]
+        per_pair = torch.cat([torch.sum(_field_grads(row, dx, dy, dpower), 2),
+                              torch.sum(dop, 1, keepdim=True), dfeat], dim=1)
+        slot = (tile_start + r)[valid].long()
+        rows[slot] = per_pair[valid]
+    return rows
+
+
+@torch.no_grad()
+def slot_reduce_plain(rows, slots: SlotTable, n: int):
+    """Kernel 2's second pass (JAX `_table_reduce`): dpacked [n, 16], row g
+    the sum of its slots' rows in ascending slot order (0 + r_0 + r_1 + ...,
+    the kernel's order); the columns past the rows' 6 + nc are exactly zero."""
+    start, slot = slots.gauss_start.long(), slots.gauss_slot.long()
+    count = start[1:] - start[:-1]
+    out = torch.zeros((n, 16), dtype=rows.dtype, device=rows.device)
+    nf = rows.shape[1]
+    for j in range(int(count.max()) if n else 0):
+        has = count > j
+        out[has, :nf] += rows[slot[start[:-1][has] + j]]
+    return out
+
+
+@torch.no_grad()
 def composite_bwd_plain(packed, pair_gauss, tile_start, tile_count, acc, tfin,
                         dacc, dtfin, cam: Camera, nc: int, tile_lo: int = 0,
                         n_local: int | None = None):
     """Kernel 2's plain version: dpacked [N, 16] (xy, conic, opacity and
-    the nc walked feature columns; the others are exactly zero)."""
+    the nc walked feature columns; the others are exactly zero), the two
+    passes in turn through the slot table of `binning.build_slots`."""
+    rows = composite_bwd_pairs_plain(packed, pair_gauss, tile_start, tile_count, acc, tfin,
+                                     dacc, dtfin, cam, nc, tile_lo, n_local)
     n = packed.shape[0]
-    grads = torch.zeros((n, 6 + nc), dtype=packed.dtype, device=packed.device)
-    for valid, g, row, dx, dy, dpower, dop, w in _replay(
-            packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc, dtfin,
-            cam, nc, tile_lo, n_local):
-        dfeat = torch.sum(w[:, None, :] * dacc, dim=2)           # [T, nc]
-        per_pair = torch.cat([torch.sum(_field_grads(row, dx, dy, dpower), 2),
-                              torch.sum(dop, 1, keepdim=True), dfeat], dim=1)
-        grads.index_add_(0, g[valid], per_pair[valid])
-    pad = grads.new_zeros((n, 16 - 6 - nc))
-    return torch.cat([grads, pad], dim=1)
+    return slot_reduce_plain(rows, build_slots(pair_gauss, n), n)
 
 
 @torch.no_grad()

@@ -1,5 +1,8 @@
 """The three CUDA compositing kernels: build, ctypes binding, launch counts
-and the wrappers the render path calls.
+and the wrappers the render path calls. Kernel 2 (`composite_bwd`) runs as
+two launches from one source, its per-slot rows (`composite_bwd_rows`,
+counted as `composite_bwd`) and the slot reduce (`slot_reduce`, counted on
+its own).
 
 Each source under `csrc/` is compiled at first use by its own `nvcc` (all
 started together) into a shared library with a plain C interface under
@@ -36,6 +39,7 @@ from pathlib import Path
 import torch
 
 from . import composite as plain
+from .binning import SlotTable, build_slots
 from .camera import PIX, Camera
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -48,7 +52,7 @@ _F = ctypes.c_float
 
 
 class Kernel:
-    """One CUDA source, its C entry point and its launch count."""
+    """One C entry point of a CUDA source and its launch count."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list):
         self.name = name
@@ -66,7 +70,7 @@ class Kernel:
         for p in (CSRC / self.source, CSRC / "composite_common.cuh"):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
+        return BUILD_DIR / f"lib{Path(self.source).stem}-{h.hexdigest()[:12]}.so"
 
     def bind(self):
         if self._fn is None:
@@ -79,16 +83,17 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args):
+    def launch(self, *args, nc: int, windowed: bool):
+        """Calls the entry point with `args` and counts the launch at width
+        `nc`, and as windowed where it walks (or reduces) a tile window
+        that is not the whole grid."""
         err = self.bind()(*args)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} was not launched: "
                                f"cudaError {err}")
         self.launches += 1
-        # every entry point starts with _COMMON's arguments
-        tile_lo, n_local, n_tiles, nc = args[5], args[6], args[7], args[9]
         self.launches_by_nc[nc] = self.launches_by_nc.get(nc, 0) + 1
-        if tile_lo != 0 or n_local != n_tiles:
+        if windowed:
             self.launches_windowed += 1
 
 
@@ -100,12 +105,15 @@ _COMMON = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
 FWD_NC, BWD_NC, POSE_BWD_NC = (3, 4, 5, 6), (3, 4), (5, 6)
 FWD = Kernel("composite_fwd", "composite_fwd.cu", "mm3dgs_composite_fwd",
              _COMMON + [_P, _P, _P, _P])
-BWD = Kernel("composite_bwd", "composite_bwd.cu", "mm3dgs_composite_bwd",
+BWD = Kernel("composite_bwd", "composite_bwd.cu", "mm3dgs_composite_bwd_rows",
              _COMMON + [_P, _P, _P, _P, _P, _P, _P])
+# rows, nf, gauss_start, gauss_slot, n, dpacked, stream
+REDUCE = Kernel("slot_reduce", "composite_bwd.cu", "mm3dgs_slot_reduce",
+                [_P, _I, _P, _P, _I, _P, _P])
 POSE_BWD = Kernel("composite_pose_bwd", "composite_pose_bwd.cu",
                   "mm3dgs_composite_pose_bwd",
                   _COMMON + [_P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P])
-KERNELS = (FWD, BWD, POSE_BWD)
+KERNELS = (FWD, BWD, REDUCE, POSE_BWD)
 
 
 def _nvcc() -> str:
@@ -113,25 +121,26 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> None:
-    """Compile every kernel whose library is missing, one nvcc per source,
+    """Compile every source whose library is missing, one nvcc per source,
     all in parallel; raises on a failed build."""
-    todo = [k for k in KERNELS if not k.library_path().exists()]
+    todo = {k.library_path(): k.source for k in KERNELS if not k.library_path().exists()}
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for k in todo:
-        out = k.library_path()
+    for out, source in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / k.source)]
-        procs.append((k, out, tmp, subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / source)]
+        procs.append((source, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for k, out, tmp, p in procs:
+    for source, out, tmp, p in procs:
         log, _ = p.communicate()
-        k.ptxas_log = log
+        for k in KERNELS:
+            if k.source == source:
+                k.ptxas_log = log
         if p.returncode != 0:
-            failed.append(f"{k.source}:\n{log}")
+            failed.append(f"{source}:\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
@@ -184,6 +193,10 @@ def _window(cam: Camera, tile_lo: int, n_local: int | None) -> int:
     return n_local
 
 
+def _windowed(cam: Camera, tile_lo: int, n_local: int) -> bool:
+    return tile_lo != 0 or n_local != cam.n_tiles
+
+
 def _check_bins(packed, pair_gauss, tile_start, tile_count, n_local, ld_min):
     if packed.dim() != 2 or packed.shape[1] < ld_min:
         raise ValueError(f"packed: expected [N, >={ld_min}], got {tuple(packed.shape)}")
@@ -232,7 +245,8 @@ def composite_fwd(packed, pair_gauss, tile_start, tile_count, cam: Camera, nc: i
     tfin = torch.empty((n_local, 1, PIX), dtype=torch.float32, device=packed.device)
     FWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
                tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local, cam.n_tiles,
-               cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(), work_ptr, _stream())
+               cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(), work_ptr, _stream(),
+               nc=nc, windowed=_windowed(cam, tile_lo, n_local))
     return acc, tfin
 
 
@@ -244,24 +258,69 @@ def _check_grads(n_local, nc, acc, tfin, dacc, dtfin):
 
 def composite_bwd(packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc,
                   dtfin, cam: Camera, nc: int, work=None, tile_lo: int = 0,
-                  n_local: int | None = None):
+                  n_local: int | None = None, slots: SlotTable | None = None):
     """Kernel 2: dpacked [N, 16], the mapping backward (of the window's tiles:
-    every row of packed, each the sum over the window's pairs)."""
+    every row of packed, each the sum over the window's pairs), as two
+    launches that add in a fixed order, so that dpacked is the same bits on
+    every call: `composite_bwd_rows`, then `slot_reduce`. `slots` is
+    `binning.build_slots(pair_gauss, N)`, built here when not given (the
+    mapping loop builds it once per set of bins)."""
+    rows = composite_bwd_rows(packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc,
+                              dtfin, cam, nc, work, tile_lo, n_local)
+    n = packed.shape[0]
+    if slots is None:
+        slots = build_slots(pair_gauss, n)
+    n_local = _window(cam, tile_lo, n_local)
+    return slot_reduce(rows, slots, n, windowed=_windowed(cam, tile_lo, n_local))
+
+
+def composite_bwd_rows(packed, pair_gauss, tile_start, tile_count, acc, tfin, dacc,
+                       dtfin, cam: Camera, nc: int, work=None, tile_lo: int = 0,
+                       n_local: int | None = None):
+    """Kernel 2's first pass: rows [P, 6 + nc], one per (tile, pair) slot of
+    the window's bins (P = len(pair_gauss)), its gradient summed over the
+    tile's pixels (zero where no pixel uses the pair). The kernel writes
+    the slots tile_start[t] .. tile_start[t] + tile_count[t] - 1 of each
+    tile t, so pair_gauss must hold the window's pairs and no others, as
+    `binning.build_bins` gives them (P = tile_start[-1] + tile_count[-1])."""
     if not packed.is_cuda:
         _no_work_on_cpu(work)
-        return plain.composite_bwd_plain(packed, pair_gauss, tile_start, tile_count, acc,
-                                         tfin, dacc, dtfin, cam, nc, tile_lo=tile_lo,
-                                         n_local=n_local)
+        return plain.composite_bwd_pairs_plain(packed, pair_gauss, tile_start, tile_count,
+                                               acc, tfin, dacc, dtfin, cam, nc,
+                                               tile_lo=tile_lo, n_local=n_local)
     n_local = _window(cam, tile_lo, n_local)
     _check_nc(BWD, nc, BWD_NC)
     _check_bins(packed, pair_gauss, tile_start, tile_count, n_local, 6 + nc)
     _check_grads(n_local, nc, acc, tfin, dacc, dtfin)
     work_ptr = _work_ptr(work, packed.device)
-    dpacked = torch.zeros((packed.shape[0], 16), dtype=torch.float32, device=packed.device)
+    rows = torch.empty((pair_gauss.shape[0], 6 + nc), dtype=torch.float32,
+                       device=packed.device)
     BWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
                tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local, cam.n_tiles,
                cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(), dacc.data_ptr(),
-               dtfin.data_ptr(), dpacked.data_ptr(), work_ptr, _stream())
+               dtfin.data_ptr(), rows.data_ptr(), work_ptr, _stream(), nc=nc,
+               windowed=_windowed(cam, tile_lo, n_local))
+    return rows
+
+
+def slot_reduce(rows, slots: SlotTable, n: int, windowed: bool = False):
+    """Kernel 2's second pass: dpacked [n, 16], row g the sum of Gaussian g's
+    slots' rows (rows [P, 6 + nc]) in ascending slot order, the columns past
+    6 + nc zero. `windowed` counts the launch as a tile window's."""
+    if not rows.is_cuda:
+        return plain.slot_reduce_plain(rows, slots, n)
+    nf = rows.shape[1]
+    _check_nc(REDUCE, nf - 6, BWD_NC)
+    _check("rows", rows, torch.float32)
+    _check("gauss_start", slots.gauss_start, torch.int32, (n + 1,))
+    _check("gauss_slot", slots.gauss_slot, torch.int32, (rows.shape[0],))
+    for name, t in (("gauss_start", slots.gauss_start), ("gauss_slot", slots.gauss_slot)):
+        if t.device != rows.device:
+            raise ValueError(f"{name} is on {t.device}, rows on {rows.device}")
+    dpacked = torch.empty((n, 16), dtype=torch.float32, device=rows.device)
+    REDUCE.launch(rows.data_ptr(), nf, slots.gauss_start.data_ptr(),
+                  slots.gauss_slot.data_ptr(), n, dpacked.data_ptr(), _stream(), nc=nf - 6,
+                  windowed=windowed)
     return dpacked
 
 
@@ -284,5 +343,6 @@ def composite_pose_bwd(packed32, pair_gauss, tile_start, tile_count, acc, tfin,
                     tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local,
                     cam.n_tiles, cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(),
                     dacc.data_ptr(), dtfin.data_ptr(), cam.fx, cam.fy, cam.cx - 0.5,
-                    cam.cy - 0.5, psum.data_ptr(), work_ptr, _stream())
+                    cam.cy - 0.5, psum.data_ptr(), work_ptr, _stream(),
+                    nc=nc, windowed=_windowed(cam, tile_lo, n_local))
     return psum

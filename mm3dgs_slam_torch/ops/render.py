@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from . import kernels
-from .binning import TileBins, build_bins
+from .binning import SlotTable, TileBins, build_bins
 from .camera import PIX, TILE, Camera
 from .pose import pose_to_w2c, quat_to_rotmat
 from .projection import ProjectedGaussians, conic_pose_jacobian_rows, project_gaussians
@@ -126,15 +126,17 @@ def background(rs: RenderSettings, device=None, channels: int = 6):
 
 class _CompositePacked(torch.autograd.Function):
     """packed [N, 16] -> (acc, tfin) of a tile window; backward = kernel 2
-    (dpacked)."""
+    (dpacked) through the slot table `slots` (built in the backward when
+    None)."""
 
     @staticmethod
-    def forward(ctx, packed, pair_gauss, tile_start, tile_count, cam, nc, tile_lo, n_local):
+    def forward(ctx, packed, pair_gauss, tile_start, tile_count, cam, nc, tile_lo, n_local,
+                slots):
         packed = packed.contiguous()
         acc, tfin = kernels.composite_fwd(packed, pair_gauss, tile_start, tile_count, cam, nc,
                                           tile_lo=tile_lo, n_local=n_local)
         ctx.save_for_backward(packed, pair_gauss, tile_start, tile_count, acc, tfin)
-        ctx.cam, ctx.nc, ctx.window = cam, nc, (tile_lo, n_local)
+        ctx.cam, ctx.nc, ctx.window, ctx.slots = cam, nc, (tile_lo, n_local), slots
         return acc, tfin
 
     @staticmethod
@@ -145,17 +147,18 @@ class _CompositePacked(torch.autograd.Function):
         tile_lo, n_local = ctx.window
         dpacked = kernels.composite_bwd(packed, pair_gauss, tile_start, tile_count,
                                         acc, tfin, dacc, dtfin, ctx.cam, ctx.nc,
-                                        tile_lo=tile_lo, n_local=n_local)
-        return dpacked, None, None, None, None, None, None, None
+                                        tile_lo=tile_lo, n_local=n_local, slots=ctx.slots)
+        return dpacked, None, None, None, None, None, None, None, None
 
 
 def composite_packed(packed, bins: TileBins, cam: Camera, nc: int, tile_lo: int = 0,
-                     n_local: int | None = None):
+                     n_local: int | None = None, slots: SlotTable | None = None):
     """Differentiable composite of packed rows: (acc [T, nc, 256],
     tfin [T, 1, 256]) over the whole grid or a tile window (T = n_local,
-    `bins` built for the same window), background not applied."""
+    `bins` built for the same window), background not applied. `slots`,
+    `binning.build_slots` of the bins, saves the backward building it."""
     return _CompositePacked.apply(packed, bins.pair_gauss, bins.tile_start,
-                                  bins.tile_count, cam, nc, tile_lo, n_local)
+                                  bins.tile_count, cam, nc, tile_lo, n_local, slots)
 
 
 def render_tiles(g: ActivatedGaussians, camera_pose, rs: RenderSettings,

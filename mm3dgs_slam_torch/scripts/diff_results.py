@@ -3,7 +3,7 @@ against the 1% thresholds (JAX counterpart: scripts/diff_results.py; the
 same checks, the same PASS/FAIL/SKIP lines, the same exit code).
 
     python -m mm3dgs_slam_torch.scripts.diff_results RUN_A_DIR RUN_B_DIR \\
-        [--rel-tol 0.01] [--ate-abs-floor 0.002]
+        [--rel-tol 0.01] [--ate-abs-floor 0.002] [--exact]
 
 Either package's output directory works (both write the same artifacts):
   <dir>/results.npz           pose_est [N, 7] w2c, pose_gt, ate_rmse,
@@ -18,7 +18,8 @@ Checks (each ok or FAIL; exit code 1 on any FAIL):
   * PLY maps (when both exist): Gaussian counts within rel_tol, and the
     mean opacity, mean log-scale and xyz extent within 5 * rel_tol.
 A metric NaN on both sides is SKIP (LPIPS without weights); NaN on one side
-only is FAIL.
+only is FAIL. --exact also requires the two runs to be the same bits
+(`same_bits`: two runs of one commit on one card are).
 """
 from __future__ import annotations
 
@@ -116,6 +117,34 @@ def diff(run_a: str, run_b: str, rel_tol: float = 0.01, ate_abs_floor: float = 0
     return rep.failed
 
 
+EXACT_KEYS = ("pose_est", "psnr_list", "ssim_list", "lpips_proxy_list", "ate_rmse")
+
+
+def same_bits(run_a: str, run_b: str) -> bool:
+    """Whether two runs are the same bits: results.npz's EXACT_KEYS
+    np.array_equal and the same PLY files under both directories, byte-equal.
+    Prints one line per check."""
+    ra, rb = _load_results(run_a), _load_results(run_b)
+    ok = True
+    for k in EXACT_KEYS:
+        eq = k in ra and k in rb and np.array_equal(ra[k], rb[k])
+        print(f"  {'ok  ' if eq else 'FAIL'} {k}: {'equal' if eq else 'differs'}")
+        ok &= eq
+    plys = [sorted(os.path.relpath(p, d) for p in glob.glob(os.path.join(d, "**", "*.ply"),
+                                                            recursive=True))
+            for d in (run_a, run_b)]
+
+    def read(d, f):
+        with open(os.path.join(d, f), "rb") as fh:
+            return fh.read()
+
+    eq = bool(plys[0]) and plys[0] == plys[1] and all(
+        read(run_a, f) == read(run_b, f) for f in plys[0])
+    print(f"  {'ok  ' if eq else 'FAIL'} PLY files {plys[0]} / {plys[1]}: "
+          f"{'byte-equal' if eq else 'differ'}")
+    return ok and eq
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="compare two SLAM run outputs")
     ap.add_argument("run_a")
@@ -124,8 +153,16 @@ def main(argv=None) -> int:
                     help="relative tolerance for headline metrics (1%%)")
     ap.add_argument("--ate-abs-floor", type=float, default=0.002,
                     help="absolute ATE agreement floor in meters")
+    ap.add_argument("--exact", action="store_true",
+                    help="also require the same bits (results.npz and PLY files)")
     args = ap.parse_args(argv)
-    return 1 if diff(args.run_a, args.run_b, args.rel_tol, args.ate_abs_floor) else 0
+    failed = diff(args.run_a, args.run_b, args.rel_tol, args.ate_abs_floor)
+    if args.exact:
+        print("[bit-identity]")
+        same = same_bits(args.run_a, args.run_b)
+        print("BIT-IDENTICAL:", "PASS" if same else "FAIL")
+        failed |= not same
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

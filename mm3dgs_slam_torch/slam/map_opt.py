@@ -42,6 +42,7 @@ import torch
 
 from ..models.gaussians import (AdamState, GaussianMap, MapOptHyper, adam_update,
                                 prune_mask_reference)
+from ..ops.binning import build_slots
 from ..ops.losses import l1_loss, masked_mean, pearson_loss, ssim
 from ..ops.render import (RenderSettings, background, composite_packed, from_tiles,
                           project_for_pose, tile_pixel_valid, to_tiles)
@@ -86,16 +87,18 @@ class MapState(NamedTuple):
 def map_loss(m: GaussianMap, screen_offset, pose, gt_color, gt_depth, est_depth,
              bins, ms: MapOptSettings, counts=None):
     """Loss and (radius, visible) for one keyframe; differentiable in the
-    map leaves and `screen_offset` [N, 2]. `bins` are this rank's window
-    bins and `counts` every rank's row count."""
+    map leaves and `screen_offset` [N, 2]. `bins` are `_map_bins`'s: this
+    rank's window bins and their slot table; `counts` every rank's row
+    count."""
+    tile_bins, slots = bins
     rs = ms.rs
     proj = project_for_pose(m.activated(), pose, rs)
     packed = torch.cat([proj.packed[:, :2] + screen_offset, proj.packed[:, 2:]], dim=1)
     splatam = ms.method == "splatam"
     nc = 4 if (splatam or ms.use_depth_estimate_loss) else 3
     lo, n_local = ms.mesh.window(rs.cam)
-    acc, tfin = composite_packed(gather_rows(packed, ms.mesh, counts), bins, rs.cam, nc,
-                                 lo, n_local)
+    acc, tfin = composite_packed(gather_rows(packed, ms.mesh, counts), tile_bins, rs.cam, nc,
+                                 lo, n_local, slots)
     out_t = gather_tiles(acc + tfin * background(rs, acc.device)[:nc][None, :, None],
                          ms.mesh, rs.cam)
     image = from_tiles(out_t[:, :3], rs.cam)
@@ -120,9 +123,12 @@ def map_loss(m: GaussianMap, screen_offset, pose, gt_color, gt_depth, est_depth,
 
 
 def _map_bins(m: GaussianMap, pose, ms: MapOptSettings, counts=None):
+    """(this rank's window bins at `pose`, their slot table): kernel 2's
+    reduce order, built once per segment with the bins."""
     with torch.no_grad():
-        proj = project_for_pose(m.activated(), pose, ms.rs)
-        return build_window_bins(replicate_proj(proj, ms.mesh, counts), ms.rs.cam, ms.mesh)
+        proj = replicate_proj(project_for_pose(m.activated(), pose, ms.rs), ms.mesh, counts)
+        bins = build_window_bins(proj, ms.rs.cam, ms.mesh)
+        return bins, build_slots(bins.pair_gauss, proj.packed.shape[0])
 
 
 def _grad_and_stats(st: MapState, bins, pose, i, gt_color, gt_depth, est_depth,

@@ -12,7 +12,7 @@ import torch
 
 from mm3dgs_slam_torch.ops import composite as plain
 from mm3dgs_slam_torch.ops import kernels
-from mm3dgs_slam_torch.ops.binning import build_bins
+from mm3dgs_slam_torch.ops.binning import build_bins, build_slots
 from mm3dgs_slam_torch.ops.camera import Camera
 from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
 from mm3dgs_slam_torch.ops.render import (ActivatedGaussians, RenderSettings, means_cam_soa,
@@ -26,9 +26,10 @@ POSE = [0.999, 0.02, -0.01, 0.005, 0.01, -0.02, 0.03]
 # Kernel 3's per-tile partials cancel, so they are held, as in chip_smoke.py,
 # to an atol of this fraction of each partial's sum |term| and rtol 5e-3.
 PARTIAL_ATOL = 1e-5
-# Kernel 2's gradients are held to GRAD_TOL; on a dense scene, where even
-# the float64 backward of the float32 forward's outputs misses it, against
-# the float64 evaluation (_bwd_as_accurate_as_plain).
+# Kernel 2's gradients and per-slot rows are held to GRAD_TOL; where float32
+# cannot reach it (a dense scene, where even the float64 backward of the
+# float32 forward's outputs misses it; the rows of the hard scenes), against
+# the float64 evaluation (_bwd_as_accurate_as_plain, _rows_as_accurate_as_plain).
 GRAD_TOL = dict(atol=5e-5, rtol=5e-3)
 
 
@@ -429,6 +430,106 @@ def test_windowed_launches_match_plain_and_whole_grid(world, scene):
     assert bool((psum_s[cam.n_tiles:] == 0).all())
     torch.testing.assert_close(dsum, dpacked, **GRAD_TOL)
     assert float(dpacked.abs().max()) > 1e-3
+
+
+def _rows_as_accurate_as_plain(rows_k, packed, args, nc, **win):
+    """Kernel 2's per-slot rows `rows_k` on `args` (pair_gauss, tile_start,
+    tile_count, acc, tfin, dacc, dtfin, cam) where a row's pixel terms
+    cancel beyond what float32 holds to GRAD_TOL (the anisotropic scene has
+    a row of 2.66 that float32 sums in two orders put 0.021 apart): against
+    the float64 evaluation of the plain first pass (on the float64 forward)
+    its error norm is within 2x of the float32 plain version's. Prints
+    both readings."""
+    pair_gauss, tile_start, tile_count, acc, tfin, dacc, dtfin, cam = args
+    bins = (pair_gauss, tile_start, tile_count)
+    p64 = packed.double()
+    acc64, tfin64 = plain.composite_fwd_plain(p64, *bins, cam, nc, **win)
+    r64 = plain.composite_bwd_pairs_plain(p64, *bins, acc64, tfin64, dacc.double(),
+                                          dtfin.double(), cam, nc, **win)
+    got = {"kernel 2": rows_k, "plain": plain.composite_bwd_pairs_plain(packed, *args, nc, **win)}
+    tol = GRAD_TOL["atol"] + GRAD_TOL["rtol"] * r64.abs()
+    norm = {}
+    for name, r in got.items():
+        e = (r.double() - r64).abs()
+        norm[name] = float(e.norm())
+        print(f"[kernel 2 rows, nc {nc}, {r.shape[0]} slots] {name} against float64: max "
+              f"error {float(e.max()):.4g}, norm {norm[name]:.4g}, beyond GRAD_TOL "
+              f"{int((e > tol).sum())} of {int((r64 != 0).sum())} (max |row| "
+              f"{float(r64.abs().max()):.4g})")
+    assert norm["kernel 2"] <= 2 * norm["plain"]
+
+
+def _bwd_twice(packed, bins, cam, nc, dev, accurate=False, **win):
+    """Kernel 2 on the same inputs (over the window `win` of `bins`, the
+    whole grid by default): the rows pass launched twice, then both passes
+    through `composite_bwd`; the rows and dpacked the same bits each time,
+    and dpacked bit-equal to the plain slot reduce of the kernel's rows
+    (the same adds in the same order). The rows are held to their plain
+    version at GRAD_TOL, or, on the scenes where float32 cannot reach it
+    (`accurate`), against the float64 evaluation
+    (_rows_as_accurate_as_plain)."""
+    a, t = kernels.composite_fwd(packed, *_args(bins, cam), nc, **win)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dacc = torch.randn(a.shape, generator=gen, device=dev)
+    dtfin = torch.randn(t.shape, generator=gen, device=dev)
+    args = (packed, *_args(bins, cam)[:3], a, t, dacc, dtfin, cam, nc)
+    n = packed.shape[0]
+    slots = build_slots(bins.pair_gauss, n)
+    before = kernels.BWD.launches, kernels.REDUCE.launches
+    rows1 = kernels.composite_bwd_rows(*args, **win)
+    rows2 = kernels.composite_bwd_rows(*args, **win)
+    d1 = kernels.slot_reduce(rows1, slots, n, windowed=bool(win))
+    d2 = kernels.composite_bwd(*args, slots=slots, **win)
+    torch.cuda.synchronize()
+    assert (kernels.BWD.launches, kernels.REDUCE.launches) == (before[0] + 3, before[1] + 2)
+    assert torch.equal(rows1, rows2) and torch.equal(d1, d2)
+    if accurate:
+        _rows_as_accurate_as_plain(rows1, packed, args[1:-1], nc, **win)
+    else:
+        torch.testing.assert_close(rows1, plain.composite_bwd_pairs_plain(*args, **win),
+                                   **GRAD_TOL)
+    assert torch.equal(d1, plain.slot_reduce_plain(rows1, slots, n))
+    assert float(d1[:, 6 + nc:].abs().max()) == 0.0
+    return d1
+
+
+@pytest.mark.parametrize("kind", ["projected", "anisotropic", "saturating", "dense"])
+@pytest.mark.parametrize("nc", [3, 4])
+def test_bwd_kernel_is_bit_identical_across_launches(nc, kind):
+    """The whole grid, on the projected scene and the hard ones (the
+    saturating one has tiles of more than 256 pairs, both halves of a batch
+    and blocks that stop early: zero rows past the stop; the dense one
+    227,220 pairs at 640x480); the rows of the hard and dense scenes
+    against the float64 evaluation."""
+    dev = _cuda()
+    if kind == "projected":
+        _, rs, _, packed, bins = _scene(dev)
+        cam = rs.cam
+    elif kind == "dense":
+        _, rs, _, packed, bins = _dense_scene(dev)
+        cam = rs.cam
+    else:
+        packed, bins, cam = _hard_scene(kind, dev)
+    d = _bwd_twice(packed, bins, cam, nc, dev, accurate=kind != "projected")
+    assert float(d.abs().max()) > 0
+
+
+@pytest.mark.parametrize("world", [2, 7])
+def test_bwd_kernel_windows_are_bit_identical_across_launches(world):
+    """Every tile window of W ranks at 640x480 on the seeded scene (W 7
+    leaves 4 pad tiles): see _bwd_twice."""
+    from mm3dgs_slam_torch.parallel.mesh import tiles_per_shard
+
+    dev = _cuda()
+    g, rs, pose, packed, bins = _seeded_scene(dev)
+    tpb = tiles_per_shard(rs.cam, world)
+    with torch.no_grad():
+        proj = project_for_pose(g, pose, rs)
+    windowed = kernels.REDUCE.launches_windowed
+    for r in range(world):
+        _bwd_twice(packed, build_bins(proj, rs.cam, r * tpb, tpb), rs.cam, 3, dev,
+                   tile_lo=r * tpb, n_local=tpb)
+    assert kernels.REDUCE.launches_windowed == windowed + 2 * world
 
 
 def test_bench_kernel_check_passes():
