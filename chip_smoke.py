@@ -14,11 +14,16 @@ Phases (each passes or the script exits non-zero):
      same bits both times, the rows against the plain first pass and
      dpacked against the plain passes (GRAD_TOL), dpacked bit-equal to the
      plain reduce of the kernel's rows, each pass timed alone and both
-     together; kernel 3's per-tile partials, dq and dT;
+     together, the slot table's segment lengths (slots per Gaussian: mean,
+     p99, max); kernel 3's per-tile partials, dq and dT;
      each kernel's count of (tile, pair, warp box)s its per-warp cull keeps
-     against the plain count; times from CUDA events, bounds from the walk's
+     against the plain count; times from CUDA events with the card held
+     busy while the host queues the timed calls, bounds from the walk's
      counts in this data; the host wall time of one rebin (projection and
-     binning);
+     binning); then the slot reduce on the mapping bins the bench times
+     (bench.build_scene's 131,072 Gaussians at the identity pose): its
+     segment lengths, bit-equal to its second launch and the plain reduce,
+     its time beside index_add_'s and its bound;
   3b. the same checks at UTMM.yml's 640x330 (the last tile row partial), on
      the first frame of the UT-MM sequence of phase 5 seeded one Gaussian per
      pixel and seen from its second frame: kernel 1 at nc 4 and 5, kernel 2
@@ -121,6 +126,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -139,6 +145,7 @@ REPLICA_FRAMES = 5       # written and read in phase 10
 IMU_PRIOR_WEIGHTS = dict(imu_T_weight=0.5, imu_q_weight=0.5)   # tests/test_e2e_imu.py's
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA data sheet (SXM)
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+HOLD_CYCLES = 1_000_000         # ~0.5 ms of the card's clock per timed call (cuda_ms)
 # The least f32 arithmetic each function needs (comparisons not counted, an
 # exp counted as one), from the walk's counts in this run's data (plain
 # composite_fwd_plain(count_work=True)). Any exact walk must evaluate the
@@ -176,13 +183,18 @@ def fail(msg: str):
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    """Mean ms per call of fn over reps calls, CUDA events, after warm calls."""
+    """Mean ms per call of fn over reps calls, CUDA events, after warm calls.
+    The card is held busy (torch.cuda._sleep, HOLD_CYCLES a call) while the
+    host queues the calls, so that a call that takes the card less time
+    than its wrapper takes the host (the slot reduce, index_add_) is timed
+    by the card, not by the host."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES * reps)
     a.record()
     for _ in range(reps):
         fn()
@@ -229,6 +241,20 @@ def check_work(name, counter, work, tag="check"):
         fail(f"{name}: {kept} boxes kept (plain warp_pairs {work['warp_pairs']}), "
              f"{walked} walked")
     return kept, walked
+
+
+def segment_stats(slots, n: int, tag: str) -> dict:
+    """Slots per Gaussian of a slot table (its segment lengths) over the
+    Gaussians that have any, printed: their count, mean, p99 and max."""
+    import torch
+
+    c = slots.gauss_start[1:] - slots.gauss_start[:-1]
+    h = c[c > 0].double()
+    seg = dict(gaussians=int(h.numel()), mean=float(h.mean()),
+               p99=float(torch.quantile(h, 0.99)), max=int(h.max()))
+    print(f"[{tag}] slot segments: {seg['gaussians']} of {n} gaussians have slots; slots per "
+          f"gaussian mean {seg['mean']:.3f}, p99 {seg['p99']:.0f}, max {seg['max']}", flush=True)
+    return seg
 
 
 def synthetic_frames(cfg, device, scene):
@@ -394,6 +420,7 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
     dtfin = torch.randn(tfin.shape, generator=gen, device=device)
     gargs = (packed, *args[:3], acc, tfin, dacc, dtfin, rs.cam, nc)
     slots = build_slots(bins.pair_gauss, n)
+    seg = segment_stats(slots, n, tag)
     counter = new_work()
     rows_k = kernels.composite_bwd_rows(*gargs, work=counter)
     rows_k2 = kernels.composite_bwd_rows(*gargs)
@@ -420,6 +447,9 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
     # table and writes dpacked; kernel 2 as a whole does both
     rows_bytes = 4 * (n_seen * nf + n_pairs + 2 * n_tiles + n_pix * (2 * nc + 2) + n_pairs * nf)
     rows_ops = n_pix * OPS_PIX_BWD(nc) + evaluated * OPS_TEST + used * OPS_BWD_USE(nc)
+    # the reduce reads the rows, gauss_start and gauss_slot once each (each
+    # warp the bounds of its 32 Gaussians and one run of gauss_slot) and
+    # writes dpacked once
     red_bytes, red_ops = 4 * (n_pairs * nf + n + 1 + n_pairs + 16 * n), pairs_used * nf
     b, by = bound_ms(rows_bytes, rows_ops)
     b_red, by_red = bound_ms(red_bytes, red_ops)
@@ -448,7 +478,7 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
                      replaces="mm3dgs_slam_tpu/ops/pallas_composite.py:1105",
                      max_abs_err=float((d_k - plain.slot_reduce_plain(rows_k, slots, n)).abs()
                                        .max()), ms=t_red, plain_ms=tp_red, bound_ms=b_red,
-                     bound_by=by_red, library_ms=t_lib))
+                     bound_by=by_red, library_ms=t_lib, segments=seg))
 
     # kernel 3: the per-tile partials, then dq and dT, at each tracking width
     # (nc 5 vigs/mm3dgs, nc 6 splatam); the row holds the first width's
@@ -503,6 +533,60 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
         row[f"nc{nc}"] = k3[nc]
     rows.append(row)
     return rows
+
+
+def check_bench_bins(device, nc=3, tag="check bench bins"):
+    """Phase 3's slot reduce on the mapping bins the bench times:
+    bench.build_scene's 131,072 Gaussians at 640x480 binned at the identity
+    pose, kernel 2's rows at `nc` for a random dacc and dtfin; the segment
+    lengths, the reduce bit-equal to its second launch and to the plain
+    reduce of the same rows, its time beside index_add_'s and its bound.
+    Returns the kernels line's entry."""
+    import torch
+
+    from mm3dgs_slam_torch import bench
+    from mm3dgs_slam_torch.ops import composite as plain
+    from mm3dgs_slam_torch.ops import kernels
+    from mm3dgs_slam_torch.ops.binning import build_bins, build_slots
+    from mm3dgs_slam_torch.ops.render import RenderSettings, project_for_pose
+
+    m, cam = bench.build_scene(bench.N_GAUSSIANS, (bench.H, bench.W), device=device)
+    with torch.no_grad():
+        proj = project_for_pose(m.activated(), torch.tensor(bench.IDENTITY, device=device),
+                                RenderSettings(cam=cam))
+        bins = build_bins(proj, cam)
+    packed, n = proj.packed.contiguous(), m.n
+    args = (packed, bins.pair_gauss, bins.tile_start, bins.tile_count, cam)
+    acc, tfin = kernels.composite_fwd(*args, nc)
+    gen = torch.Generator(device=device).manual_seed(4)
+    rows = kernels.composite_bwd_rows(*args[:4], acc, tfin,
+                                      torch.randn(acc.shape, generator=gen, device=device),
+                                      torch.randn(tfin.shape, generator=gen, device=device),
+                                      cam, nc)
+    slots = build_slots(bins.pair_gauss, n)
+    seg = segment_stats(slots, n, tag)
+    d1 = kernels.slot_reduce(rows, slots, n)
+    d2 = kernels.slot_reduce(rows, slots, n)
+    d_p = plain.slot_reduce_plain(rows, slots, n)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    same = torch.equal(bits(d1), bits(d2)) and torch.equal(bits(d1), bits(d_p))
+    t_red = cuda_ms(lambda: kernels.slot_reduce(rows, slots, n), 10)
+    idx, dst = bins.pair_gauss.long(), torch.zeros((n, rows.shape[1]), device=device)
+    t_lib = cuda_ms(lambda: dst.index_add_(0, idx, rows), 10)
+    tp = cuda_ms(lambda: plain.slot_reduce_plain(rows, slots, n), 1, warm=0)
+    n_pairs, nf = rows.shape
+    # each input read once (rows, the slot table), dpacked written once; the
+    # adds are those of the slots whose row is not all zero
+    b, by = bound_ms(4 * (n_pairs * nf + n + 1 + n_pairs + 16 * n),
+                     int((rows != 0).any(1).sum()) * nf)
+    print(f"[{tag}] {n} gaussians at {cam.width}x{cam.height}, {n_pairs} pairs, nc={nc}: reduce "
+          f"{t_red:.4f} ms (bound {b:.4f}, {by}; index_add_ {t_lib:.4f} ms; plain {tp:.1f} ms); "
+          f"two launches and the plain reduce {'bit-equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail(f"{tag}: the slot reduce is not bit-equal to its second launch or the plain reduce")
+    return dict(n=n, pairs=n_pairs, nc=nc, ms=t_red, library_ms=t_lib, plain_ms=tp,
+                bound_ms=b, bound_by=by, max_abs_err=float((d1 - d_p).abs().max()),
+                segments=seg)
 
 
 def check_windows(scene, worlds=(2, 7), tag="check 3d"):
@@ -670,17 +754,20 @@ def run_mesh(scene_npz, outdir, main_cfg):
     t0 = time.perf_counter()
     p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
-    lines = [ln for ln in p.stdout.splitlines() if ln.startswith(("[mesh]", "[rank "))]
-    for ln in lines:
-        print(f"[mesh2] {ln}", flush=True)
+    for ln in p.stdout.splitlines():
+        if "[mesh]" in ln or "[rank " in ln:
+            print(f"[mesh2] {ln}", flush=True)
     if p.returncode != 0:
         print(p.stdout[-4000:], p.stderr[-8000:], sep="\n", file=sys.stderr)
         fail(f"mesh2: torchrun exited {p.returncode}")
-    ranks = {}
-    for ln in lines:
-        if ln.startswith("[rank "):
-            r = int(ln[6:ln.index("/")])
-            ranks[r] = json.loads(ln[ln.index("{"):])
+    # The ranks share torchrun's stdout, so a summary need not start a line
+    # or end one: each is read from its marker to the end of its object.
+    ranks, decoder = {}, json.JSONDecoder()
+    for mt in re.finditer(r"\[rank (\d+)/\d+\] ", p.stdout):
+        try:
+            ranks[int(mt.group(1))] = decoder.raw_decode(p.stdout, mt.end())[0]
+        except json.JSONDecodeError as e:
+            fail(f"mesh2: rank {mt.group(1)}'s summary does not parse ({e})")
     if sorted(ranks) != list(range(MESH_RANKS)):
         fail(f"mesh2: rank summaries {sorted(ranks)}")
     r = np.load(Path(outdir) / "results.npz", allow_pickle=True)
@@ -1237,6 +1324,8 @@ def main() -> int:
     f0, f1, cam = synthetic_frames(cfg, device, scene_npz)
     scene = check_scene((f0, f1), RenderSettings(cam=cam), device)
     rows = check_kernels(scene)
+    bench_bins = check_bench_bins(device)
+    next(k for k in rows if k["name"] == "slot_reduce")["bench_bins"] = bench_bins
     ba_rel = check_ba_chain(scene)
     # phase 3d: the three kernels over the tile windows of 2 and 7 ranks
     t0 = time.perf_counter()
@@ -1295,8 +1384,9 @@ def main() -> int:
         urows = check_kernels(check_scene((u0, u1), urs, device), fwd_ncs=(4, 5), bwd_nc=4,
                               pose_ncs=(5,), tag="check 640x330")
         for k, u in zip(rows, urows):
-            k["utmm_640x330"] = {key: u[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                                          "bound_ms", "bound_by")}
+            k["utmm_640x330"] = {key: u[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "segments") if key in u}
             k["utmm_640x330"]["nc"] = {"composite_fwd": 5, "composite_bwd": 4,
                                        "slot_reduce": 4, "composite_pose_bwd": 5}[k["name"]]
 
@@ -1306,8 +1396,9 @@ def main() -> int:
         rrows = check_kernels(check_scene((r0, r1), RenderSettings(cam=rcam), device),
                               fwd_ncs=(3, 4, 5), bwd_nc=4, pose_ncs=(5,), tag="check 600x340")
         for k, r in zip(rows, rrows):
-            k["replica_600x340"] = {key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                                             "bound_ms", "bound_by")}
+            k["replica_600x340"] = {key: r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "segments") if key in r}
             k["replica_600x340"]["nc"] = {"composite_fwd": 5, "composite_bwd": 4,
                                           "slot_reduce": 4, "composite_pose_bwd": 5}[k["name"]]
         print(f"[check 600x340] {time.perf_counter() - t0:.1f} s", flush=True)

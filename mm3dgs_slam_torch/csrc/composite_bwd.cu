@@ -10,7 +10,9 @@
 //      opacity and nc walked features, summed over the tile's pixels;
 //   2. `slot_reduce_kernel` gives dpacked [N, 16], row g the sum of
 //      Gaussian g's slots' rows in ascending slot order (the slot table of
-//      ops/binning.py `build_slots`); columns 6 + nc to 15 are zero.
+//      ops/binning.py `build_slots`); columns 6 + nc to 15 are zero. A
+//      warp gathers the rows of 32 Gaussians' slots into shared memory
+//      with coalesced loads and each lane adds its own Gaussian's.
 // The xy columns are included because densification reads them. No float
 // is added with an atomic, so dpacked is the same bits on every launch.
 //
@@ -32,7 +34,8 @@
 // block's stop (all its pixels saturated) get zero rows.
 //
 // Bound on an H100: instruction issue and shuffles in pass 1, not bytes;
-// pass 2 reads each slot's row once, scattered, and writes dpacked once.
+// pass 2 by bytes: it reads each slot's row once, scattered, and writes
+// dpacked once (writing dpacked alone is over a quarter of its time).
 #include "composite_common.cuh"
 
 using namespace mm3dgs;
@@ -172,23 +175,86 @@ composite_bwd_rows_kernel(const float* __restrict__ packed, int ld,
   add_work(work, kept, walked);
 }
 
-// One thread per (gaussian, column) of dpacked: column k < nf adds the
-// gaussian's slots' rows in ascending slot order from 0; the others are 0.
-__global__ void __launch_bounds__(256)
-slot_reduce_kernel(const float* __restrict__ rows, int nf,
-                   const int* __restrict__ gauss_start,
-                   const int* __restrict__ gauss_slot, int n,
-                   float* __restrict__ dpacked) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= 16LL * n) return;
-  const int g = (int)(t / 16), k = (int)(t % 16);
-  float s = 0.0f;
-  if (k < nf) {
-    const int e = __ldg(gauss_start + g + 1);
-    for (int j = __ldg(gauss_start + g); j < e; ++j)
-      s += __ldg(rows + (size_t)__ldg(gauss_slot + j) * nf + k);
+// Pass 2: one warp per 32 consecutive Gaussians, lane l Gaussian g0 + l.
+// Their slots are one run of the slot table, gauss_slot[gauss_start[g0] ..
+// gauss_start[g0 + 32]), which the warp takes RED_CHUNK slots at a time:
+//   1. the chunk's slot indices, one coalesced load, into shared memory;
+//   2. its rows gathered into shared memory, flat (slot, column) e to lane
+//      e % 32, so NF consecutive lanes read one 36-40 B row and each lane
+//      has up to RED_CHUNK * NF / 32 independent loads in flight;
+//   3. each lane adds its own Gaussian's rows of the chunk, column by
+//      column, in ascending slot order onto its running sums (from 0, as
+//      slot_reduce_plain does, so the bits are the plain reduce's).
+// Then the warp stages its 32 dpacked rows in shared memory and writes them
+// as 2 KB of contiguous float4s. A Gaussian's adds are a chain in slot order
+// whatever its length; a long one only makes its warp take more chunks.
+// Each warp waits on three dependent loads (its segment bounds, the slot
+// indices, the rows), so the card needs many warps in flight: the kernel is
+// held to 64 registers a thread so that 4 blocks (32 warps) share an SM.
+// Tensor cores and TMA have no part here: this is a gather-sum of 36-40 B
+// rows at scattered addresses followed by a streaming write.
+constexpr int RED_WARPS = 8;       // warps of a block
+constexpr int RED_MIN_BLOCKS = 4;  // blocks an SM holds at once
+constexpr int RED_CHUNK = 64;      // slots a warp gathers at a time
+
+template <int NF>
+__device__ __forceinline__ float col(const float (&acc)[NF], int k) {
+  return k < NF ? acc[k < NF ? k : 0] : 0.0f;
+}
+
+template <int NF>
+__global__ void __launch_bounds__(32 * RED_WARPS, RED_MIN_BLOCKS)
+slot_reduce_kernel(const float* __restrict__ rows, const int* __restrict__ gauss_start,
+                   const int* __restrict__ gauss_slot, int n, float* __restrict__ dpacked) {
+  constexpr int PER_LANE = RED_CHUNK * NF / 32;
+  static_assert(RED_CHUNK * NF % 32 == 0, "a chunk's (slot, column)s fill whole warps");
+  static_assert(RED_CHUNK * NF >= 32 * 16, "the staged dpacked rows reuse the rows' buffer");
+  __shared__ __align__(16) float s_rows[RED_WARPS][RED_CHUNK * NF];
+  __shared__ int s_slot[RED_WARPS][RED_CHUNK];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g0 = (blockIdx.x * RED_WARPS + warp) * 32;
+  if (g0 >= n) return;
+  const int g = min(g0 + lane, n);  // lanes past n: the empty segment [P, P)
+  const int a = __ldg(gauss_start + g), b = __ldg(gauss_start + min(g + 1, n));
+  const int lo = __shfl_sync(FULL, a, 0), hi = __shfl_sync(FULL, b, 31);
+  float* sr = s_rows[warp];
+  int* ss = s_slot[warp];
+  float acc[NF];
+#pragma unroll
+  for (int k = 0; k < NF; ++k) acc[k] = 0.0f;
+  for (int c0 = lo; c0 < hi; c0 += RED_CHUNK) {
+    const int cnt = min(RED_CHUNK, hi - c0);
+    for (int i = lane; i < cnt; i += 32) ss[i] = __ldg(gauss_slot + c0 + i);
+    __syncwarp();
+    float v[PER_LANE];
+#pragma unroll
+    for (int u = 0; u < PER_LANE; ++u) {
+      const int e = lane + 32 * u, j = e / NF;
+      v[u] = j < cnt ? __ldg(rows + (size_t)ss[j] * NF + (e - j * NF)) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < PER_LANE; ++u) sr[lane + 32 * u] = v[u];
+    __syncwarp();
+    const int j1 = min(b, c0 + cnt);
+    for (int j = max(a, c0); j < j1; ++j) {
+#pragma unroll
+      for (int k = 0; k < NF; ++k) acc[k] += sr[(j - c0) * NF + k];
+    }
+    __syncwarp();
   }
-  dpacked[t] = s;
+  float4* st = reinterpret_cast<float4*>(sr);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    st[lane * 4 + q] = make_float4(col(acc, 4 * q), col(acc, 4 * q + 1), col(acc, 4 * q + 2),
+                                   col(acc, 4 * q + 3));
+  __syncwarp();
+  float4* out = reinterpret_cast<float4*>(dpacked) + (size_t)g0 * 4;
+  const int n_rows = min(32, n - g0);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int f = q * 32 + lane;
+    if (f / 4 < n_rows) out[f] = st[f];
+  }
 }
 
 template <int NC>
@@ -231,15 +297,19 @@ extern "C" int mm3dgs_composite_bwd_rows(const float* packed, int ld,
   }
 }
 
-// Pass 2: dpacked [n, 16] from rows [P, nf] (nf <= 16) through the slot
-// table gauss_start [n + 1], gauss_slot [P]. Returns a cudaError_t.
+// Pass 2: dpacked [n, 16] (16-B aligned) from rows [P, nf], nf = 6 + nc
+// (mapping's nc 3 or 4), through the slot table gauss_start [n + 1],
+// gauss_slot [P]. Returns a cudaError_t.
 extern "C" int mm3dgs_slot_reduce(const float* rows, int nf, const int* gauss_start,
                                   const int* gauss_slot, int n, float* dpacked,
                                   void* stream) {
-  if (nf < 1 || nf > 16) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  const long long threads = 16LL * n;
-  slot_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-      rows, nf, gauss_start, gauss_slot, n, dpacked);
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks = (unsigned)((n + 32 * RED_WARPS - 1) / (32 * RED_WARPS));
+  switch (nf) {
+    case 9: slot_reduce_kernel<9><<<blocks, 32 * RED_WARPS, 0, s>>>(rows, gauss_start, gauss_slot, n, dpacked); break;
+    case 10: slot_reduce_kernel<10><<<blocks, 32 * RED_WARPS, 0, s>>>(rows, gauss_start, gauss_slot, n, dpacked); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

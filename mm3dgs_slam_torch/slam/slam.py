@@ -49,6 +49,7 @@ torchrun then stops the others.
 from __future__ import annotations
 
 import os
+import sys
 import time
 import traceback
 from collections import defaultdict
@@ -312,7 +313,10 @@ class SLAM:
         """One line per rank, ``[rank r/W] {json}``: its rows, its kernel
         launches (all, and over a tile window), its ms per tracking and
         mapping iteration (with debug.get_runtime_stats; null without) and
-        a SHA-1 of its pose list, which every rank must share."""
+        a SHA-1 of its pose list, which every rank must share. The ranks
+        share one stdout, so the line goes out in one write, after
+        everything printed before it: a line split over two writes can be
+        joined to another rank's."""
         import hashlib
         import json
 
@@ -321,14 +325,16 @@ class SLAM:
         def per_it(total, n):
             return total / n * 1e3 if n else None
 
-        print(f"[rank {self.mesh.rank}/{self.mesh.size}] " + json.dumps({
+        line = f"[rank {self.mesh.rank}/{self.mesh.size}] " + json.dumps({
             "gaussians": self.gaussians.n,
             "launches": kernels.launch_counts(),
             "launches_windowed": kernels.launch_counts_windowed(),
             "ms_track": per_it(self.tracking_time_sum, self.tracking_iter_count),
             "ms_map": per_it(self.mapper.mapping_time_sum, self.mapper.mapping_iter_count),
-            "pose_sha1": hashlib.sha1(self.estimate_pose_list.tobytes()).hexdigest()}),
-            flush=True)
+            "pose_sha1": hashlib.sha1(self.estimate_pose_list.tobytes()).hexdigest()})
+        sys.stdout.flush()
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
 
     def _start_profiler(self):
         """debug.jax_profiler_dir: a torch.profiler trace of the whole run."""

@@ -532,6 +532,55 @@ def test_bwd_kernel_windows_are_bit_identical_across_launches(world):
     assert kernels.REDUCE.launches_windowed == windowed + 2 * world
 
 
+def _long_tail_rows(dev, nc, n=40001, seed=0):
+    """A drawn slot table with a long tail, and rows for it: 60,000 slots
+    over the first 30,000 of n Gaussians (the others have none; n is not a
+    multiple of 32), and 8 Gaussians with 300-800 slots each, spread among
+    them; rows over twelve decades, so that the sums depend on the order."""
+    rng = np.random.default_rng(seed)
+    heavy = rng.choice(30000, 8, replace=False)
+    pg = np.concatenate([rng.integers(0, 30000, 60000),
+                         np.repeat(heavy, rng.integers(300, 800, 8))])
+    pg = pg[rng.permutation(pg.shape[0])]
+    rows = (rng.standard_normal((pg.shape[0], 6 + nc))
+            * 10.0 ** rng.integers(-6, 6, (pg.shape[0], 6 + nc)))
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)  # noqa: E731
+    return t(rows, np.float32), t(pg, np.int32), n
+
+
+@pytest.mark.parametrize("kind", ["anisotropic", "saturating", "long_tail"])
+@pytest.mark.parametrize("nc", [3, 4])
+def test_slot_reduce_kernel_equals_plain(nc, kind):
+    """Kernel 2's second pass alone, on the kernel's rows of the hard scenes
+    and on a long-tail table: two launches and the plain reduce of the same
+    rows the same bits, the columns past 6 + nc +0."""
+    dev = _cuda()
+    if kind == "long_tail":
+        rows, pair_gauss, n = _long_tail_rows(dev, nc)
+    else:
+        packed, bins, cam = _hard_scene(kind, dev)
+        acc, tfin = kernels.composite_fwd(packed, *_args(bins, cam), nc)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rows = kernels.composite_bwd_rows(
+            packed, *_args(bins, cam)[:3], acc, tfin,
+            torch.randn(acc.shape, generator=gen, device=dev),
+            torch.randn(tfin.shape, generator=gen, device=dev), cam, nc)
+        pair_gauss, n = bins.pair_gauss, packed.shape[0]
+    slots = build_slots(pair_gauss, n)
+    before = kernels.REDUCE.launches
+    d1 = kernels.slot_reduce(rows, slots, n)
+    d2 = kernels.slot_reduce(rows, slots, n)
+    torch.cuda.synchronize()
+    assert kernels.REDUCE.launches == before + 2
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    assert torch.equal(bits(d1), bits(d2))
+    assert torch.equal(bits(d1), bits(plain.slot_reduce_plain(rows, slots, n)))
+    assert not bits(d1[:, 6 + nc:].contiguous()).any()
+    counts = slots.gauss_start[1:] - slots.gauss_start[:-1]
+    assert int(counts.max()) > (300 if kind == "long_tail" else 1)
+    assert float(d1.abs().max()) > 0
+
+
 def test_bench_kernel_check_passes():
     """The bench's own kernel check (kernels 1-3 against their plain
     versions on its 2,048-Gaussian 120x160 scene) on the card."""
