@@ -81,11 +81,16 @@ Phases (each passes or the script exits non-zero):
      640x480, then the CLI's code path on configs/TUM.yml (monocular, with
      TinyDPT on assets/tiny_dpt_synthetic.npz in place of MiDaS, crop_edge 8,
      the tum_heuristic depth anchor, the depth-estimate loss in mapping),
-     3 frames; every kernel launched, ATE < 0.06 m, PSNR > 15 dB;
+     3 frames; every kernel launched, ATE < 0.06 m, PSNR > 15 dB; and the
+     data's ceiling PSNR of each frame the loader returns (against the
+     oracle's render of the writing scene at the loader's camera and GT
+     pose; synthetic_recorded.ceiling_psnr, computed on the CPU in a child
+     process while the sequences are written);
  10. Replica: a Replica-layout sequence (JPEG frames, depth PNGs, traj.txt)
      written at replica.yml's native 1200x680, then the CLI's code path on
      configs/replica.yml (600x340, GT depth) with debug.save_keyframes on,
-     5 frames; every kernel launched, ATE < 0.03 m, PSNR > 17 dB;
+     5 frames; every kernel launched, ATE < 0.03 m, PSNR > 17 dB; its
+     ceiling PSNR as phase 9's (after the resize to 600x340);
  11. the eval CLIs on phase 10's output: eval_traj's ATE equal to
      results.npz's (1e-6 m), eval_image's re-render from the saved map on the
      card within 0.01 dB of results.npz's mean PSNR, and one keyframe PNG per
@@ -108,16 +113,25 @@ Phases (each passes or the script exits non-zero):
      1 dB of phase 4 over the same frames, both ranks' poses bit-equal;
  15. determinism: phase 4's and phase 8's runs again, each through run_golden
      in a fresh process (the two at once, started after phase 3d and done
-     before phase 3b, while the UT-MM and Replica sequences are written and
-     no time is read); at the end, results.npz's pose_est, psnr_list,
+     before phase 3b, while the TUM, Replica and UT-MM sequences are written
+     and no time is read); at the end, results.npz's pose_est, psnr_list,
      ssim_list, lpips_proxy_list and ate_rmse equal and the PLY files
-     byte-equal to phases 4's and 8's (both runs' ATE and PSNR printed).
+     byte-equal to phases 4's and 8's (both runs' ATE and PSNR printed);
+ 16. configs/synthetic.yml, the repo's own config (120x160, 8 frames, 40/60
+     iterations, rebin_every 1, NIQE keyframes), on the JAX package's scene
+     of it (mm3dgs_slam_torch/assets/jax_scene_synthetic.npz): the four
+     launches against their plain versions on its frames 0 and 1 (kernel 1
+     at nc 3, 5 and 6, kernel 2's rows and reduce at nc 3, kernel 3 at nc 5;
+     80 tiles, under one wave of the card's SMs), then the whole config
+     through the CLI's `run` with mapping.do_BA off and then on: ATE < 0.03
+     m and PSNR > 17 dB each, both ATEs and their ratio printed on one
+     `[synthetic]` line beside phases 8 / 4's.
 Phase 3 also holds kernel 3 at nc 6 (splatam tracking) and bundle
 adjustment's pose gradient (kernel 2's dpacked chained through the
 projection into the pose) against the plain chain; every path's
 lpips_proxy_list must be finite. Then one JSON line per the kernels
-(launches from phase 4, with each path's counts and the 640x330, 600x340
-and nc 6 checks beside them), the nvidia-smi line, and the last line
+(launches from phase 4, with each path's counts and the 640x330, 600x340,
+120x160 and nc 6 checks beside them), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 It needs CUDA and the repository around it; without either it exits non-zero
 and prints no result.
@@ -170,11 +184,6 @@ OPS_POSE_USE = lambda nc: 35 + 2 * nc + (2 if nc == 6 else 0)  # noqa: E731
 OPS_POSE_PAIR = lambda nc: 53 + (2 if nc == 6 else 0)          # noqa: E731
 # per pixel, before the backward walks: C.dC (2nc) and dT_fin T_fin (1)
 OPS_PIX_BWD = lambda nc: 2 * nc + 1                           # noqa: E731
-IMG_TOL = dict(atol=2e-5, rtol=1e-4)
-GRAD_TOL = dict(atol=5e-5, rtol=5e-3)
-PARTIAL_ATOL = 1e-5     # of sum |term| per kernel-3 partial (~170 f32 epsilons)
-POSE_TOL = dict(atol=1e-4, rtol=5e-4)   # dq, dT: rtol 5e-4 with a tiny atol
-BA_ATOL = 1e-5          # of sum |term| per component of BA's pose gradient
 
 
 def fail(msg: str):
@@ -349,6 +358,7 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
     from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
     from mm3dgs_slam_torch.ops.render import (background, effective_scales, means_cam_soa,
                                               pose_grads_from_partials, project_for_pose)
+    from mm3dgs_slam_torch.ops.tolerances import GRAD_TOL, IMG_TOL, PARTIAL_ATOL, POSE_TOL
 
     g, pose1, rs, packed, bins = scene
     device = packed.device
@@ -408,7 +418,9 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
                      source="mm3dgs_slam_torch/csrc/composite_fwd.cu",
                      replaces="mm3dgs_slam_tpu/ops/pallas_composite.py:368",
                      max_abs_err=worst, ms=t_k[nc], plain_ms=t_p[nc], bound_ms=b,
-                     bound_by=by, library_ms=None))
+                     bound_by=by, library_ms=None, work=dict(kept=kept, walked=walked),
+                     walk={k: work[k] for k in ("tested", "used", "stops", "pairs_walked",
+                                                "pairs_used")}))
 
     # kernel 2: dpacked for loss = sum(w * acc) + sum(w_t * tfin), w ~ N(0, 1),
     # launched twice (the same bits); its per-slot rows and dpacked against
@@ -435,7 +447,7 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
     err, ok = max_violation(d_k, d_p, **GRAD_TOL)
     # the reduce on the kernel's rows: the plain reduce's adds, in its order
     red_eq = torch.equal(d_k, plain.slot_reduce_plain(rows_k, slots, n))
-    check_work(f"kernel 2 nc={nc}", counter, work, tag)
+    kept, walked = check_work(f"kernel 2 nc={nc}", counter, work, tag)
     t_both = cuda_ms(lambda: kernels.composite_bwd(*gargs, slots=slots), 10)
     t_rows = cuda_ms(lambda: kernels.composite_bwd_rows(*gargs), 10)
     t_red = cuda_ms(lambda: kernels.slot_reduce(rows_k, slots, n), 10)
@@ -472,7 +484,8 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
                      replaces="mm3dgs_slam_tpu/ops/pallas_composite.py:626",
                      max_abs_err=err_r, ms=t_rows, plain_ms=tp, bound_ms=b, bound_by=by,
                      library_ms=None, dpacked_max_abs_err=err, both_passes=dict(
-                         ms=t_both, bound_ms=b_both, bound_by=by_both), bit_identical=same))
+                         ms=t_both, bound_ms=b_both, bound_by=by_both), bit_identical=same,
+                     work=dict(kept=kept, walked=walked)))
     rows.append(dict(name="slot_reduce", route="cuda",
                      source="mm3dgs_slam_torch/csrc/composite_bwd.cu",
                      replaces="mm3dgs_slam_tpu/ops/pallas_composite.py:1105",
@@ -524,7 +537,8 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
               f"kernel {tk:.4f} ms, plain {tp:.1f} ms, bound {b:.4f} ms ({by})", flush=True)
         if not (ok_t and ok):
             fail(f"kernel 3 at nc {nc} disagrees with its plain version")
-        k3[nc] = dict(max_abs_err=max(err_t, err), ms=tk, plain_ms=tp, bound_ms=b, bound_by=by)
+        k3[nc] = dict(max_abs_err=max(err_t, err), ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
+                      work=dict(kept=kept, walked=walked))
     row = dict(name="composite_pose_bwd", route="cuda",
                source="mm3dgs_slam_torch/csrc/composite_pose_bwd.cu",
                replaces="mm3dgs_slam_tpu/ops/pallas_composite.py:858",
@@ -607,6 +621,7 @@ def check_windows(scene, worlds=(2, 7), tag="check 3d"):
     from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
     from mm3dgs_slam_torch.ops.render import effective_scales, means_cam_soa, project_for_pose
     from mm3dgs_slam_torch.parallel.mesh import tiles_per_shard
+    from mm3dgs_slam_torch.ops.tolerances import GRAD_TOL, IMG_TOL, PARTIAL_ATOL
 
     g, pose1, rs, packed, bins = scene
     cam, device = rs.cam, packed.device
@@ -812,6 +827,7 @@ def check_ba_chain(scene, nc=3, tag="check"):
     from mm3dgs_slam_torch.ops import composite as plain
     from mm3dgs_slam_torch.ops import kernels
     from mm3dgs_slam_torch.ops.render import composite_packed, project_for_pose
+    from mm3dgs_slam_torch.ops.tolerances import BA_ATOL, POSE_TOL
 
     g, pose1, rs, packed, bins = scene
     device = packed.device
@@ -1267,6 +1283,122 @@ def prior_pull(slam, camera_centers):
         fail("utmm+prior: the IMU prior did not pull the tracked pose towards its seed")
 
 
+SIZE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "segments",
+             "work", "walk")
+
+
+def add_size_entries(rows, size_rows, key, ncs):
+    """Copy check_kernels's numbers at another size (`size_rows`) into the
+    kernels line's rows under `key`, with the width each entry is at."""
+    for k, r in zip(rows, size_rows):
+        k[key] = {f: r[f] for f in SIZE_KEYS if f in r}
+        k[key]["nc"] = ncs[k["name"]]
+
+
+def _ceiling_child(jobs, out_path):
+    """start_ceilings's process: synthetic_recorded.ceiling_psnr of each
+    (tag, config) on the CPU, written to out_path as {tag: [dB, ...]}."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    torch.set_num_threads(2)
+    from mm3dgs_slam_torch.data.synthetic_recorded import ceiling_psnr
+
+    Path(out_path).write_text(json.dumps({tag: ceiling_psnr(cfg, "cpu") for tag, cfg in jobs}))
+
+
+def start_ceilings(jobs, tmp):
+    """The data's own PSNR ceiling of each written sequence of `jobs` ((tag,
+    config)s; printed by phases 9 and 10): one oracle render per loaded
+    frame, on the CPU in a child process, while the main process writes
+    the UT-MM sequence and the reruns of phase 15 hold the card (no time is
+    read then). Returns the handle for wait_ceilings; the child is killed if
+    the script exits first."""
+    import atexit
+    import multiprocessing
+
+    out = Path(tmp) / "ceilings.json"
+    p = multiprocessing.get_context("spawn").Process(target=_ceiling_child,
+                                                     args=(jobs, str(out)))
+    p.start()
+    atexit.register(lambda: p.kill() if p.is_alive() else None)
+    return p, out, time.perf_counter()
+
+
+def wait_ceilings(started) -> dict:
+    """start_ceilings's {tag: [dB, ...]}, once its process has ended with 0."""
+    p, out, t0 = started
+    p.join(timeout=max(1.0, 900.0 - (time.perf_counter() - t0)))
+    if p.is_alive() or p.exitcode != 0:
+        fail(f"ceiling: the ceiling PSNR process did not end with 0 ({p.exitcode})")
+    print(f"[ceiling] the ceiling PSNRs done {time.perf_counter() - t0:.1f} s after their start",
+          flush=True)
+    return json.loads(out.read_text())
+
+
+def print_ceiling(tag, ceil, cfg, slam):
+    """A recorded path's ceiling PSNR per loaded frame, beside the SLAM's
+    PSNR on its eval frames; the ceiling must cover every frame the SLAM
+    read and be finite."""
+    r = np.load(Path(cfg["outputdir"]) / "results.npz", allow_pickle=True)
+    print(f"[{tag}] ceiling PSNR (each loaded frame against the oracle's render of the writing "
+          f"scene at the loader's camera and GT pose) {[round(v, 3) for v in ceil]} dB, mean "
+          f"{np.mean(ceil):.3f}; the SLAM's PSNR {[round(float(v), 3) for v in r['psnr_list']]}"
+          f" dB, mean {float(np.mean(r['psnr_list'])):.3f}", flush=True)
+    if not (len(ceil) == slam.n_img and np.isfinite(ceil).all()):
+        fail(f"{tag}: the ceiling PSNR {ceil} does not cover the {slam.n_img} frames read")
+
+
+def run_synthetic_yml(run, kernels, tmp, device, rows, rebins, main_cfg, ba_cfg):
+    """Phase 16: configs/synthetic.yml, the repo's own config (120x160, 8
+    frames, 40 / 60 iterations, tpu.rebin_every 1, NIQE keyframes, 800
+    Gaussians), on the JAX package's scene of it. First the four launches
+    against their plain versions on its frames 0 and 1 (kernel 1 at nc 3, 5
+    and 6, kernel 2's rows and reduce at nc 3, kernel 3 at nc 5), their
+    numbers added to the kernels line's rows as synthetic_120x160; then the
+    whole config through drive, with mapping.do_BA off and then on, each
+    ATE < 0.03 m and PSNR > 17 dB. Prints both ATEs, their ratio beside
+    phases 8 / 4's at 640x480, and each run's PSNR, ms per iteration and
+    mapping rebins. Returns the two runs' launch counts."""
+    from mm3dgs_slam_torch.config import load_config
+    from mm3dgs_slam_torch.data.synthetic import jax_scene_path
+    from mm3dgs_slam_torch.ops.render import RenderSettings
+
+    t0 = time.perf_counter()
+    scene = str(jax_scene_path("synthetic"))
+    cfg = load_config(str(ROOT / "configs" / "synthetic.yml"))
+    cfg["outputdir"] = str(Path(tmp) / "out_synthetic")
+    f0, f1, cam = synthetic_frames(cfg, device, scene)
+    srows = check_kernels(check_scene((f0, f1), RenderSettings(cam=cam), device),
+                          fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5,), tag="check 120x160")
+    add_size_entries(rows, srows, "synthetic_120x160", {
+        "composite_fwd": 5, "composite_bwd": 3, "slot_reduce": 3, "composite_pose_bwd": 5})
+    bcfg = copy.deepcopy(cfg)
+    bcfg["outputdir"] = str(Path(tmp) / "out_synthetic_ba")
+    bcfg["mapping"]["do_BA"] = True
+    on_scene = lambda c, dev: run(c, dev, scene=scene)  # noqa: E731
+    out = {}
+    for tag, c in (("synthetic", cfg), ("synthetic+ba", bcfg)):
+        rebins[0] = 0
+        launches, _, _ = drive(on_scene, kernels, tag, c, ate_max=0.03, psnr_min=17.0)
+        r = np.load(Path(c["outputdir"]) / "results.npz", allow_pickle=True)
+        out[tag] = dict(launches=launches, ate=float(r["ate_rmse"]),
+                        psnr=float(np.mean(r["psnr_list"])), rebins=rebins[0],
+                        ms=(float(r["avg_tracking_it_time"]), float(r["avg_mapping_it_time"])))
+    big = [float(np.load(Path(c["outputdir"]) / "results.npz")["ate_rmse"])
+           for c in (main_cfg, ba_cfg)]
+    a, b = out["synthetic"], out["synthetic+ba"]
+    print(f"[synthetic] configs/synthetic.yml {cfg['desired_width']}x{cfg['desired_height']} on "
+          f"the JAX scene, {cfg['synthetic']['n_frames']} frames, "
+          f"{cfg['tracking']['iters']}/{cfg['mapping']['iters']} iterations: ATE without BA "
+          f"{a['ate']!r} m, with BA {b['ate']!r} m, ratio {b['ate'] / a['ate']:.4f} (640x480, "
+          f"phases 8 / 4: {big[1] / big[0]:.4f}); PSNR {a['psnr']:.3f} / {b['psnr']:.3f} dB; ms "
+          f"per tracking / mapping iteration {a['ms'][0]:.3f} / {a['ms'][1]:.3f} without BA, "
+          f"{b['ms'][0]:.3f} / {b['ms'][1]:.3f} with; mapping rebins {a['rebins']} / "
+          f"{b['rebins']}; phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    return a["launches"], b["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1348,18 +1480,18 @@ def main() -> int:
         bcfg["mapping"]["do_BA"] = True
         reruns = start_reruns([("main", cfg, scene_npz), ("ba", bcfg, scene_npz)], tmp)
 
-        # the UT-MM sequence of phases 3b and 5, at UTMM.yml's native size
-        ucfg = load_config(str(ROOT / "configs" / "UTMM.yml"))
-        ucfg.update(inputdir=str(Path(tmp) / "utmm"), scene="synthetic",
-                    outputdir=str(Path(tmp) / "out_utmm"),
-                    synthetic=dict(n_gaussians=UTMM_GAUSSIANS, seed=1, orbit_radius=0.12))
-        ucfg["debug"]["get_runtime_stats"] = True
+        # the TUM sequence of phase 9, at TUM.yml's native 640x480
+        tcfg = load_config(str(ROOT / "configs" / "TUM.yml"))
+        tcfg.update(inputdir=str(Path(tmp) / "tum"), scene="synthetic",
+                    outputdir=str(Path(tmp) / "out_tum"), dpt_model="tiny_dpt",
+                    dpt_weights=str(ROOT / "assets" / "tiny_dpt_synthetic.npz"),
+                    synthetic=dict(n_gaussians=RECORDED_GAUSSIANS, seed=1, orbit_radius=0.12))
         t0 = time.perf_counter()
-        write_synthetic_utmm(str(Path(ucfg["inputdir"]) / ucfg["scene"]), ucfg, UTMM_FRAMES,
-                             device=device)
-        print(f"[utmm] wrote {UTMM_FRAMES} frames at {ucfg['cam']['image_width']}x"
-              f"{ucfg['cam']['image_height']} ({UTMM_GAUSSIANS} gaussians, 30 fps, 100 Hz "
-              f"IMU) in {time.perf_counter() - t0:.1f} s", flush=True)
+        write_synthetic_tum(str(Path(tcfg["inputdir"]) / tcfg["scene"]), tcfg, SHORT_FRAMES,
+                            device=device)
+        print(f"[tum] wrote {SHORT_FRAMES} frames at {tcfg['cam']['image_width']}x"
+              f"{tcfg['cam']['image_height']} ({RECORDED_GAUSSIANS} gaussians) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         # the Replica sequence of phases 3c and 10, at replica.yml's native
         # 1200x680 (the loader reads it at 600x340)
@@ -1374,33 +1506,40 @@ def main() -> int:
         print(f"[replica] wrote {REPLICA_FRAMES} frames at {rcfg['cam']['image_width']}x"
               f"{rcfg['cam']['image_height']} ({RECORDED_GAUSSIANS} gaussians, JPEG) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        ceilings = start_ceilings([("tum", tcfg), ("replica", rcfg)], tmp)
 
-        # the reruns of phase 15 end before any time is read again
+        # the UT-MM sequence of phases 3b and 5, at UTMM.yml's native size
+        ucfg = load_config(str(ROOT / "configs" / "UTMM.yml"))
+        ucfg.update(inputdir=str(Path(tmp) / "utmm"), scene="synthetic",
+                    outputdir=str(Path(tmp) / "out_utmm"),
+                    synthetic=dict(n_gaussians=UTMM_GAUSSIANS, seed=1, orbit_radius=0.12))
+        ucfg["debug"]["get_runtime_stats"] = True
+        t0 = time.perf_counter()
+        write_synthetic_utmm(str(Path(ucfg["inputdir"]) / ucfg["scene"]), ucfg, UTMM_FRAMES,
+                             device=device)
+        print(f"[utmm] wrote {UTMM_FRAMES} frames at {ucfg['cam']['image_width']}x"
+              f"{ucfg['cam']['image_height']} ({UTMM_GAUSSIANS} gaussians, 30 fps, 100 Hz "
+              f"IMU) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # the reruns of phase 15 and the ceilings end before any time is read again
         wait_reruns(reruns)
+        ceil = wait_ceilings(ceilings)
 
         # phase 3b: the kernels at 640x330, at the widths of the UT-MM path
         u0, u1, ucam = dataset_frames(ucfg)
         urs = RenderSettings(cam=ucam, force_isotropic=ucfg["pipeline"]["force_isotropic"])
         urows = check_kernels(check_scene((u0, u1), urs, device), fwd_ncs=(4, 5), bwd_nc=4,
                               pose_ncs=(5,), tag="check 640x330")
-        for k, u in zip(rows, urows):
-            k["utmm_640x330"] = {key: u[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "segments") if key in u}
-            k["utmm_640x330"]["nc"] = {"composite_fwd": 5, "composite_bwd": 4,
-                                       "slot_reduce": 4, "composite_pose_bwd": 5}[k["name"]]
+        add_size_entries(rows, urows, "utmm_640x330", {
+            "composite_fwd": 5, "composite_bwd": 4, "slot_reduce": 4, "composite_pose_bwd": 5})
 
         # phase 3c: the kernels at 600x340, with its partial tile column
         t0 = time.perf_counter()
         r0, r1, rcam = dataset_frames(rcfg)
         rrows = check_kernels(check_scene((r0, r1), RenderSettings(cam=rcam), device),
                               fwd_ncs=(3, 4, 5), bwd_nc=4, pose_ncs=(5,), tag="check 600x340")
-        for k, r in zip(rows, rrows):
-            k["replica_600x340"] = {key: r[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "segments") if key in r}
-            k["replica_600x340"]["nc"] = {"composite_fwd": 5, "composite_bwd": 4,
-                                          "slot_reduce": 4, "composite_pose_bwd": 5}[k["name"]]
+        add_size_entries(rows, rrows, "replica_600x340", {
+            "composite_fwd": 5, "composite_bwd": 4, "slot_reduce": 4, "composite_pose_bwd": 5})
         print(f"[check 600x340] {time.perf_counter() - t0:.1f} s", flush=True)
 
         # phase 4: the main path, through run_golden on the JAX package's
@@ -1460,24 +1599,15 @@ def main() -> int:
         check_resume(bcfg, bslam, scene_npz)
 
         # phase 9: TUM (monocular, TinyDPT, crop_edge 8, tum_heuristic)
-        tcfg = load_config(str(ROOT / "configs" / "TUM.yml"))
-        tcfg.update(inputdir=str(Path(tmp) / "tum"), scene="synthetic",
-                    outputdir=str(Path(tmp) / "out_tum"), dpt_model="tiny_dpt",
-                    dpt_weights=str(ROOT / "assets" / "tiny_dpt_synthetic.npz"),
-                    synthetic=dict(n_gaussians=RECORDED_GAUSSIANS, seed=1, orbit_radius=0.12))
         t0 = time.perf_counter()
-        write_synthetic_tum(str(Path(tcfg["inputdir"]) / tcfg["scene"]), tcfg, SHORT_FRAMES,
-                            device=device)
-        print(f"[tum] wrote {SHORT_FRAMES} frames at {tcfg['cam']['image_width']}x"
-              f"{tcfg['cam']['image_height']} ({RECORDED_GAUSSIANS} gaussians) in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        t0 = time.perf_counter()
-        tum, _, _ = drive(run, kernels, "tum", tcfg, ate_max=0.06, psnr_min=15.0)
+        tum, tslam, _ = drive(run, kernels, "tum", tcfg, ate_max=0.06, psnr_min=15.0)
+        print_ceiling("tum", ceil["tum"], tcfg, tslam)
         print(f"[tum] phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
 
         # phase 10: Replica (GT depth, 600x340), keyframe PNGs on
         t0 = time.perf_counter()
         replica, rslam, _ = drive(run, kernels, "replica", rcfg, ate_max=0.03, psnr_min=17.0)
+        print_ceiling("replica", ceil["replica"], rcfg, rslam)
         print(f"[replica] keyframes {[kf.idx for kf in rslam.mapper.keyframes]}; phase 10: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1490,11 +1620,15 @@ def main() -> int:
         # phase 13: the tools on phase 4's run
         check_tools(cfg, main_slam, scene_npz, tmp, kernels)
 
+        # phase 16: configs/synthetic.yml on its JAX scene, BA off and on
+        syn, syn_ba = run_synthetic_yml(run, kernels, tmp, device, rows, rebins, cfg, bcfg)
+
         # phase 15: phase 4's and phase 8's runs against their reruns
         compare_reruns(reruns)
 
     paths = {"synthetic_tum": launches, "utmm": utmm, "utmm_prior": prior, "mono": mono,
              "splatam": splatam, "ba": ba, "tum": tum, "replica": replica,
+             "synthetic_yml": syn, "synthetic_yml_ba": syn_ba,
              "bench_track": bench["detail"]["launches"]["track"],
              "bench_map": bench["detail"]["launches"]["map"]}
     print(f"[launches] per path: {paths}; splatam by nc {s_by_nc}", flush=True)

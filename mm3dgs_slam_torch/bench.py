@@ -48,6 +48,7 @@ from .ops.render import (RenderSettings, background, effective_scales, from_tile
                          means_cam_soa, pose_grads_from_partials, project_for_pose, render,
                          tile_pixel_valid)
 from .ops.sh import rgb_to_sh
+from .ops.tolerances import GRAD_TOL, IMG_TOL, PARTIAL_ATOL, POSE_TOL
 from .slam.map_opt import MapOptSettings, MapState, optimize_map
 from .slam.tracker import TrackSettings, track_frame
 
@@ -62,11 +63,6 @@ EXTENT = 10.0
 IDENTITY = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 HYPER = G.MapOptHyper(lr_xyz=1e-4, lr_features_dc=2.5e-3, lr_features_rest=1.25e-4,
                       lr_scaling=1e-3, lr_rotation=1e-3, lr_opacity=5e-2, lr_rgb=2.5e-3)
-# chip_smoke.py phase 3's tolerances
-IMG_TOL = dict(atol=2e-5, rtol=1e-4)
-GRAD_TOL = dict(atol=5e-5, rtol=5e-3)
-PARTIAL_ATOL = 1e-5        # of each kernel-3 partial's sum |term|
-POSE_TOL = dict(atol=1e-4, rtol=5e-4)
 
 
 class KernelCheckError(Exception):

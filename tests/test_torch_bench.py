@@ -3,7 +3,8 @@ held against the JAX package on the CPU.
 
   * the shipped JAX scenes (mm3dgs_slam_torch/assets/jax_scene_<config>.npz)
     bit-equal to what the JAX package's `_make_scene` draws for
-    configs/synthetic_tum.yml and configs/synthetic_hard.yml, and frame 0 of
+    configs/synthetic_tum.yml, configs/synthetic_hard.yml and
+    configs/synthetic.yml, and frame 0 of
     both oracles on them at the image tolerance; run this file as a script
     to write the assets again (`python tests/test_torch_bench.py`),
   * `mm3dgs_slam_torch.bench`'s scene, GT, one tracking call and one mapping
@@ -38,7 +39,7 @@ from mm3dgs_slam_torch.data.synthetic import jax_scene_path, load_scene
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 SCENE_KEYS = ("xyz", "scales", "rotations", "opacity", "shs")
-GOLDEN_CONFIGS = ("synthetic_tum", "synthetic_hard")
+GOLDEN_CONFIGS = ("synthetic_tum", "synthetic_hard", "synthetic")
 
 
 def _config_camera(cfg):

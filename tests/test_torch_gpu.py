@@ -18,19 +18,19 @@ from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
 from mm3dgs_slam_torch.ops.render import (ActivatedGaussians, RenderSettings, means_cam_soa,
                                           pose_grads_from_partials, project_for_pose)
 from mm3dgs_slam_torch.ops.sh import rgb_to_sh
+from mm3dgs_slam_torch.ops.tolerances import (BA_ATOL, GRAD_TOL, IMG_TOL, PARTIAL_ATOL,
+                                              POSE_TOL)
 
 from test_torch_cull import screen_scene
 
 pytestmark = pytest.mark.gpu
 POSE = [0.999, 0.02, -0.01, 0.005, 0.01, -0.02, 0.03]
 # Kernel 3's per-tile partials cancel, so they are held, as in chip_smoke.py,
-# to an atol of this fraction of each partial's sum |term| and rtol 5e-3.
-PARTIAL_ATOL = 1e-5
+# to an atol of PARTIAL_ATOL of each partial's sum |term| and GRAD_TOL's rtol.
 # Kernel 2's gradients and per-slot rows are held to GRAD_TOL; where float32
 # cannot reach it (a dense scene, where even the float64 backward of the
 # float32 forward's outputs misses it; the rows of the hard scenes), against
 # the float64 evaluation (_bwd_as_accurate_as_plain, _rows_as_accurate_as_plain).
-GRAD_TOL = dict(atol=5e-5, rtol=5e-3)
 
 
 def _cuda():
@@ -85,8 +85,7 @@ def _fwd_matches_plain(packed, bins, cam, nc):
     assert kernels.FWD.launches == before + 1
     acc_p, tfin_p = plain.composite_fwd_plain(packed, *_args(bins, cam), nc)
     for white in (0.0, 1.0):
-        torch.testing.assert_close(acc + tfin * white, acc_p + tfin_p * white,
-                                   atol=2e-5, rtol=1e-4)
+        torch.testing.assert_close(acc + tfin * white, acc_p + tfin_p * white, **IMG_TOL)
 
 
 def _bwd_matches_plain(packed, bins, cam, nc, dev):
@@ -96,7 +95,7 @@ def _bwd_matches_plain(packed, bins, cam, nc, dev):
     dtfin = torch.randn(tfin.shape, generator=gen, device=dev)
     a = (packed, *_args(bins, cam)[:3], acc, tfin, dacc, dtfin, cam, nc)
     torch.testing.assert_close(kernels.composite_bwd(*a), plain.composite_bwd_plain(*a),
-                               atol=5e-5, rtol=5e-3)
+                               **GRAD_TOL)
 
 
 @pytest.mark.parametrize("nc", [3, 4, 5, 6])
@@ -195,7 +194,7 @@ def _pose_bwd_matches_plain(packed32, bins, cam, nc, dev):
     psum_k = kernels.composite_pose_bwd(*a)
     psum_p, asum_p = plain.composite_pose_bwd_plain(*a, abs_sum=True)
     err = (psum_k - psum_p).abs()
-    bad = err > PARTIAL_ATOL * asum_p + 5e-3 * psum_p.abs()
+    bad = err > PARTIAL_ATOL * asum_p + GRAD_TOL["rtol"] * psum_p.abs()
     assert not bool(bad.any()), (
         f"{int(bad.sum())} partials off; worst {float(err.max()):.3e}, "
         f"{float((err / asum_p.clamp_min(1e-30)).max()):.3e} of sum |term|")
@@ -213,7 +212,7 @@ def test_pose_bwd_kernel_matches_plain(nc):
     psum_k, psum_p = _pose_bwd_matches_plain(packed32, bins, rs.cam, nc, dev)
     gk = torch.cat(pose_grads_from_partials(psum_k, pose[:4]))
     gp = torch.cat(pose_grads_from_partials(psum_p, pose[:4]))
-    torch.testing.assert_close(gk, gp, rtol=5e-4, atol=1e-4)
+    torch.testing.assert_close(gk, gp, **POSE_TOL)
 
 
 @pytest.mark.parametrize("nc", [3, 4])
@@ -221,7 +220,7 @@ def test_ba_pose_gradient_through_kernel_2_matches_plain(nc):
     """Bundle adjustment's pose gradient: autograd through composite_packed
     (kernel 2's dpacked) into the pose of the projection, against the same
     chain through the plain backward; the per-Gaussian terms cancel, so the
-    atol is 1e-5 of their sum |term| (chip_smoke.py's BA_ATOL)."""
+    atol is BA_ATOL of their sum |term|."""
     from mm3dgs_slam_torch.ops.render import composite_packed
 
     dev = _cuda()
@@ -242,7 +241,8 @@ def test_ba_pose_gradient_through_kernel_2_matches_plain(nc):
     terms = J * d_p
     g_p, asum = terms.sum((1, 2)), terms.abs().sum((1, 2))
     assert float(asum.min()) > 0
-    assert bool(((g_k - g_p).abs() <= 1e-5 * asum + 5e-4 * g_p.abs()).all()), (g_k, g_p)
+    assert bool(((g_k - g_p).abs() <= BA_ATOL * asum + POSE_TOL["rtol"] * g_p.abs()).all()), (
+        g_k, g_p)
 
 
 @pytest.mark.parametrize("kind", ["anisotropic", "saturating"])
@@ -294,7 +294,7 @@ def test_kernels_on_partial_tiles(hw):
                                              rs.cam, 5, dev)
     torch.testing.assert_close(torch.cat(pose_grads_from_partials(psum_k, pose[:4])),
                                torch.cat(pose_grads_from_partials(psum_p, pose[:4])),
-                               rtol=5e-4, atol=1e-4)
+                               **POSE_TOL)
 
 
 @pytest.mark.parametrize("hw", [(340, 600), (32, 600)])
@@ -320,7 +320,7 @@ def test_kernels_on_a_partial_tile_column(hw):
     psum_k, psum_p = _pose_bwd_matches_plain(packed32, bins, cam, 5, dev)
     torch.testing.assert_close(torch.cat(pose_grads_from_partials(psum_k, pose[:4])),
                                torch.cat(pose_grads_from_partials(psum_p, pose[:4])),
-                               rtol=5e-4, atol=1e-4)
+                               **POSE_TOL)
     _, _, want = plain.composite_fwd_plain(packed, *_args(bins, cam), 3, count_work=True)
     work = torch.zeros(2, dtype=torch.int64, device=dev)
     kernels.composite_fwd(packed, *_args(bins, cam), 3, work=work)
@@ -411,10 +411,11 @@ def test_windowed_launches_match_plain_and_whole_grid(world, scene):
         dk = kernels.composite_bwd(packed, *ba, 3, **win)
         if scene == "seeded":
             ap, tp = plain.composite_fwd_plain(packed32, *_args(wb, cam), 5, **win)
-            torch.testing.assert_close(a, ap, atol=2e-5, rtol=1e-4)
-            torch.testing.assert_close(t, tp, atol=2e-5, rtol=1e-4)
+            torch.testing.assert_close(a, ap, **IMG_TOL)
+            torch.testing.assert_close(t, tp, **IMG_TOL)
             pp, asum = plain.composite_pose_bwd_plain(*pa, abs_sum=True, **win)
-            assert bool(((pk - pp).abs() <= PARTIAL_ATOL * asum + 5e-3 * pp.abs()).all())
+            assert bool(((pk - pp).abs() <= PARTIAL_ATOL * asum
+                         + GRAD_TOL["rtol"] * pp.abs()).all())
             torch.testing.assert_close(dk, plain.composite_bwd_plain(packed, *ba, 3, **win),
                                        **GRAD_TOL)
         accs.append(torch.cat([a, t], 1))

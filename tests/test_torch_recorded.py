@@ -164,3 +164,25 @@ def test_eval_cli_on_the_replica_run(replica_pair, capsys):
     np.testing.assert_allclose(proxies, tr["lpips_proxy_list"], rtol=1e-4)
     out = capsys.readouterr().out
     assert "ATE RMSE (w2c pose vectors)" in out and "PSNR :" in out
+
+
+def test_ceiling_psnr_of_the_written_layouts(tmp_path):
+    """The data's own PSNR ceiling (synthetic_recorded.ceiling_psnr: each
+    loaded frame against the oracle's render of the writing scene at the
+    loader's camera and GT pose). TUM's frames are lossless PNGs at the
+    native size, so they lose only the 8-bit rounding: every pixel within
+    half a level, at least 20 log10(2 x 255) = 54.15 dB. Replica's are JPEGs
+    read at half their written size, and lose more than that."""
+    from mm3dgs_slam_torch.config import normalize_config
+    from mm3dgs_slam_torch.data.synthetic_recorded import (ceiling_psnr, write_synthetic_replica,
+                                                           write_synthetic_tum)
+
+    ceil = {}
+    for layout, writer in (("tum", write_synthetic_tum), ("replica", write_synthetic_replica)):
+        root = str(tmp_path / layout)
+        cfg = normalize_config(recorded_cfg(layout, root, None))
+        writer(os.path.join(root, "seq"), cfg, N_FRAMES)
+        ceil[layout] = ceiling_psnr(cfg)
+        assert len(ceil[layout]) == N_FRAMES and np.isfinite(ceil[layout]).all()
+    assert min(ceil["tum"]) >= 20 * np.log10(2 * 255)
+    assert max(ceil["replica"]) < min(ceil["tum"])
