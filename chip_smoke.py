@@ -124,8 +124,15 @@ Phases (each passes or the script exits non-zero):
      at nc 3, 5 and 6, kernel 2's rows and reduce at nc 3, kernel 3 at nc 5;
      80 tiles, under one wave of the card's SMs), then the whole config
      through the CLI's `run` with mapping.do_BA off and then on: ATE < 0.03
-     m and PSNR > 17 dB each, both ATEs and their ratio printed on one
-     `[synthetic]` line beside phases 8 / 4's.
+     m and PSNR > 17 dB each, each run's drift from GT per frame, both ATEs
+     and their ratio printed on one `[synthetic]` line beside phases 8 /
+     4's; then the lockstep: the JAX package's whole state after frame 4 of
+     the BA run (mm3dgs_slam_torch/assets/jax_state_synthetic_ba_f4.npz)
+     restored into a port SLAM on the card, which steps frame 5, and so does
+     one with fx and fy one float32 ulp up; the `[synthetic lockstep f5]`
+     table holds each beside JAX's frame-5 record (tests/lockstep.py): the
+     keyframe decision, the keyframe and the BA window must be JAX's, the
+     frame's poses within LOCKSTEP_POSE_ATOL of JAX's.
 Phase 3 also holds kernel 3 at nc 6 (splatam tracking) and bundle
 adjustment's pose gradient (kernel 2's dpacked chained through the
 projection into the pose) against the plain chain; every path's
@@ -156,6 +163,10 @@ UTMM_FRAMES = 10         # written; UTMM.yml's stride 2 reads 5
 UTMM_GAUSSIANS = 20000   # the UT-MM sequence's scene (synthetic_tum.yml's count)
 RECORDED_GAUSSIANS = 20000   # the TUM and Replica sequences' scene (as UT-MM's)
 REPLICA_FRAMES = 5       # written and read in phase 10
+# phase 16's lockstep: the largest gap of frame 5's poses to JAX's record
+# (PERF.md, PR 12: 3x the larger one-ulp pose gap of the CPU lockstep,
+# JAX's 1.849e-4; the port's CPU frame 5 lay 3.41e-5 from JAX's)
+LOCKSTEP_POSE_ATOL = 5.5e-4
 IMU_PRIOR_WEIGHTS = dict(imu_T_weight=0.5, imu_q_weight=0.5)   # tests/test_e2e_imu.py's
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA data sheet (SXM)
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
@@ -1382,6 +1393,8 @@ def run_synthetic_yml(run, kernels, tmp, device, rows, rebins, main_cfg, ba_cfg)
         rebins[0] = 0
         launches, _, _ = drive(on_scene, kernels, tag, c, ate_max=0.03, psnr_min=17.0)
         r = np.load(Path(c["outputdir"]) / "results.npz", allow_pickle=True)
+        print(f"[{tag}] drift from GT per frame (camera centres, unaligned): "
+              f"{drift_from_gt(r['pose_est'], r['pose_gt'])} m", flush=True)
         out[tag] = dict(launches=launches, ate=float(r["ate_rmse"]),
                         psnr=float(np.mean(r["psnr_list"])), rebins=rebins[0],
                         ms=(float(r["avg_tracking_it_time"]), float(r["avg_mapping_it_time"])))
@@ -1395,8 +1408,66 @@ def run_synthetic_yml(run, kernels, tmp, device, rows, rebins, main_cfg, ba_cfg)
           f"phases 8 / 4: {big[1] / big[0]:.4f}); PSNR {a['psnr']:.3f} / {b['psnr']:.3f} dB; ms "
           f"per tracking / mapping iteration {a['ms'][0]:.3f} / {a['ms'][1]:.3f} without BA, "
           f"{b['ms'][0]:.3f} / {b['ms'][1]:.3f} with; mapping rebins {a['rebins']} / "
-          f"{b['rebins']}; phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{b['rebins']}", flush=True)
+    lockstep_frame5(bcfg, scene, device)
+    print(f"[synthetic] phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
     return a["launches"], b["launches"]
+
+
+def drift_from_gt(pose_est, pose_gt) -> list:
+    """Per-frame distance of the estimated camera centres from GT, m."""
+    from mm3dgs_slam_torch.eval.ate import camera_centers
+
+    d = np.linalg.norm(camera_centers(pose_est)[:, 4:] - camera_centers(pose_gt)[:, 4:], axis=1)
+    return [float(f"{v:.4g}") for v in d]
+
+
+def lockstep_frame5(bcfg, scene, device):
+    """Phase 16's lockstep: the JAX package's whole state after frame 4 of
+    configs/synthetic.yml with BA (mm3dgs_slam_torch/assets/
+    jax_state_synthetic_ba_f4.npz) restored into a port SLAM on the card,
+    which steps frame 5; so does a second one with fx and fy one float32 ulp
+    up. Prints the record of each beside JAX's (tests/lockstep.py's table,
+    `[synthetic lockstep f5]` lines) and gates the keyframe decision, the
+    keyframe and the BA window on JAX's, and every pose of the frame within
+    LOCKSTEP_POSE_ATOL of JAX's."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from lockstep import POSES, read_asset, step_recorded, table
+
+    from mm3dgs_slam_torch.data.synthetic import load_scene
+    from mm3dgs_slam_torch.slam.slam import SLAM
+    from mm3dgs_slam_torch.slam.state import restore_state
+
+    t0 = time.perf_counter()
+    state, jax_rec = read_asset(ROOT / "mm3dgs_slam_torch" / "assets" /
+                                "jax_state_synthetic_ba_f4.npz")
+    recs = {"jax": jax_rec}
+    frame = recs["jax"]["frame"]
+    for tag, move in (("card", False), ("card_ulp", True)):
+        c = copy.deepcopy(bcfg)
+        c["outputdir"] = f"{bcfg['outputdir']}_lockstep_{tag}"
+        if move:
+            for k in ("fx", "fy"):
+                c["cam"][k] = float(np.nextafter(np.float32(c["cam"][k]), np.float32(np.inf)))
+        slam = SLAM(c, device=device, scene=load_scene(scene))
+        restore_state(slam, state)
+        t1 = time.perf_counter()
+        recs[tag] = step_recorded(slam, frame)
+        print(f"[synthetic lockstep f5] {tag}: frame {frame} in {time.perf_counter() - t1:.2f} s",
+              flush=True)
+        slam._frames.close()
+    lines, gaps = table(recs, (("card - JAX", "card", "jax"),
+                               ("card - card 1ulp", "card", "card_ulp")),
+                        "synthetic lockstep f5")
+    print("\n".join(lines), flush=True)
+    for k in ("kf_decision", "keyframe", "window_frames"):
+        if not gaps[("card - JAX", k)][0]:
+            fail(f"lockstep f5: {k} {recs['card'][k]} on the card, {recs['jax'][k]} in JAX")
+    pose_gap = max(gaps[("card - JAX", k)][1] for k in POSES)
+    print(f"[synthetic lockstep f5] the frame's poses within {pose_gap:.3e} of JAX's (bound "
+          f"{LOCKSTEP_POSE_ATOL:.1e}); the lockstep {time.perf_counter() - t0:.1f} s", flush=True)
+    if not pose_gap <= LOCKSTEP_POSE_ATOL:
+        fail(f"lockstep f5: poses {pose_gap} from JAX's, above {LOCKSTEP_POSE_ATOL}")
 
 
 def main() -> int:

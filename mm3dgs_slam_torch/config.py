@@ -4,7 +4,7 @@ optional ones defaulted, plus the port's device resolution.
 
 Of the `tpu:` block the port honours the keys that change results or the
 layout: `rebin_every`, `map_rebin_every`, `group_mapping_schedule`,
-`max_new_per_frame`, `imu_pad` (the IMU seed integrates at most that many
+`imu_pad` (the IMU seed integrates at most that many
 samples per frame; the rest are dropped, as in the JAX package),
 `prefetch` (the frame loop decodes the next frame in a background thread;
 on by default) and `mesh_devices` (W > 1 shards the map over W ranks
@@ -14,8 +14,9 @@ buffers (`pair_cap`, `max_per_tile`, `chunk`, `max_tiles_per_gaussian`,
 `bin_*`, `pl_*`, `use_pallas`, `grad_bf16`, `check_overflow`,
 `track_tiles`, `pose_kernel`, `map_tiles`) are read and ignored: binning is
 sized exactly per frame and the fast paths (tile-layout losses, the fused
-pose backward) are always taken. `cfg["device"]` is ignored too; the device
-is an argument of the entry points. `dpt_model` and `dpt_weights` (the
+pose backward) are always taken. `max_new_per_frame` is read and ignored
+too: the JAX package reads it and appends every candidate. `cfg["device"]`
+is ignored; the device is an argument of the entry points. `dpt_model` and `dpt_weights` (the
 TinyDPT .npz) choose the monocular-depth estimator when `use_gt_depth` is
 false; `depth_fit` ("ls" | "tum_heuristic") anchors its scale on frame 0.
 Of the `debug:` block the port honours get_runtime_stats, create_video,
@@ -50,7 +51,7 @@ _DEFAULTS: dict[str, Any] = {
     "depth_fit": None,
     "dpt_weights": None,
     "tpu": {
-        "max_new_per_frame": -1,       # -1 = one candidate per pixel
+        "max_new_per_frame": -1,       # read and ignored, as in the JAX package
         "rebin_every": 1,              # tracking binning refresh cadence
         "map_rebin_every": 1,          # mapping binning refresh cadence
         "group_mapping_schedule": False,  # contiguous per-keyframe blocks

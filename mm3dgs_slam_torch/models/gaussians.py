@@ -145,15 +145,12 @@ def adam_update(m: GaussianMap, grads: GaussianMap, state: AdamState,
     return GaussianMap(*new_p), AdamState(GaussianMap(*new_mu), GaussianMap(*new_nu), step)
 
 
-def append_gaussians(m: GaussianMap, state: AdamState, new: NewGaussians,
-                     max_new: int = -1) -> tuple[GaussianMap, AdamState, int]:
+def append_gaussians(m: GaussianMap, state: AdamState,
+                     new: NewGaussians) -> tuple[GaussianMap, AdamState, int]:
     """Append the masked candidate rows (densification_postfix,
     gaussian_model.py:453-488) with zeroed Adam moments; the step persists.
-    `max_new` > 0 keeps only the first max_new candidates (pixel order).
     Returns (map, adam, n_added)."""
     idx = torch.nonzero(new.mask).reshape(-1)
-    if max_new > 0:
-        idx = idx[:max_new]
     rows = [getattr(new, f)[idx] for f in PARAM_FIELDS]
     cat = lambda a, b: GaussianMap(*(torch.cat([x, y], 0) for x, y in zip(a, b)))  # noqa: E731
     zeros = GaussianMap(*(torch.zeros_like(r) for r in rows))

@@ -63,15 +63,12 @@ def waterfill_quota(counts: list[int], want: int) -> list[int]:
 
 
 def append_gaussians_sharded(m: GaussianMap, adam: AdamState, new: NewGaussians,
-                             mesh: Mesh, max_new: int = -1):
-    """Append this rank's share of the masked candidates (`max_new` > 0
-    keeps the first max_new, as `append_gaussians` does) with zeroed Adam
+                             mesh: Mesh):
+    """Append this rank's share of the masked candidates with zeroed Adam
     moments. Returns (map, adam, rows appended over all ranks, added_mask
     [n_rank]: the rows this call appended here)."""
     counts = mesh.row_counts(m.n)
     mask = new.mask
-    if max_new > 0:
-        mask = mask & (torch.cumsum(mask.to(torch.int64), 0) <= max_new)
     n_masked = int(mask.sum())
     quota = waterfill_quota(counts, n_masked)
     off = sum(quota[:mesh.rank])

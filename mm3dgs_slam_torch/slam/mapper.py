@@ -83,7 +83,6 @@ class Mapper:
         self.rng = np.random.default_rng(cfg.get("seed", 0))
         self.mapping_time_sum = 0.0
         self.mapping_iter_count = 0
-        self.max_new = int(cfg["tpu"].get("max_new_per_frame", -1))
         self.decomp_on = False
         self.decomp = defaultdict(float)
 
@@ -305,8 +304,7 @@ class Mapper:
                 g_act, self._dev(est_pose), gt_color, depth_for_init, self.rs,
                 first_frame=(idx == 0 and len(self.keyframes) == 0), method=self.method,
                 mesh=self.mesh)
-            m, adam, _, added = append_gaussians_sharded(m, adam, stats.candidates, self.mesh,
-                                                         self.max_new)
+            m, adam, _, added = append_gaussians_sharded(m, adam, stats.candidates, self.mesh)
             # densification resets the stats (gaussian_model.py:482-488)
             self.max_radii = torch.zeros((m.n,), dtype=torch.float32, device=self.device)
             self.grad_accum = torch.zeros_like(self.max_radii)
