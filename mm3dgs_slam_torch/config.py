@@ -22,7 +22,7 @@ false; `depth_fit` ("ls" | "tum_heuristic") anchors its scale on frame 0.
 Of the `debug:` block the port honours get_runtime_stats, create_video,
 save_keyframes, `frame_decomp` (the per-frame wall decomposition,
 slam/slam.py) and `jax_profiler_dir` (a torch.profiler trace of the whole
-run written there).
+run written there); either turns on the port's spans (spans.py).
 
 An unknown dataset name raises ValueError when the SLAM is constructed
 (data/__init__.py).

@@ -15,7 +15,10 @@ pad) are empty.
 
 The buffers hold exactly the live pairs: no static caps, no overflow and
 no alignment padding (those exist for the TPU's static shapes). Binning is
-selection, not differentiated.
+selection, not differentiated. Each build adds to three counters (spans.py):
+`bins.builds`, `bins.candidate_pairs` (the rectangles' pairs before the
+alpha cull) and `bins.pairs` (those kept); both sizes are the ones the build
+reads back to the host for its exact buffers.
 
 `build_slots` gives the mapping backward's slot table (JAX `small_slots` /
 `big_slots` / `big_gauss`, binning.py:452-573, without their caps): each
@@ -30,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from .camera import TILE, Camera
 from .projection import ProjectedGaussians
 
@@ -159,7 +163,10 @@ def build_bins(proj: ProjectedGaussians, cam: Camera, tile_lo: int = 0,
     tau = alpha_tau(op[gid])
     tile = ty * cam.tiles_x + tx - tile_lo
     keep = tile_alpha_keep(tx, ty, xy[gid], conic, tau) & (tile >= 0) & (tile < n_local)
+    spans.count("bins.candidate_pairs", gid.shape[0])
     gid, tile = gid[keep], tile[keep]
+    spans.count("bins.builds")
+    spans.count("bins.pairs", gid.shape[0])
 
     keys, perm = torch.sort(tile * n + rank[gid])
     bounds = torch.searchsorted(

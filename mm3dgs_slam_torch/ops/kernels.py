@@ -27,6 +27,10 @@ tile-sharded render's: parallel/tile_sharded.py): the bins and the per-tile
 outputs then have n_local rows for the global tiles from tile_lo on, and the
 launch is also counted in `launches_windowed`. The whole grid (tile_lo 0,
 n_local n_tiles) is the default.
+
+Each of the four wrappers the render path calls is a `kernel.<name>` span
+(spans.py) with its width nc and its pairs and tiles: a launch's checks,
+allocations and launch on the host, on the CPU its plain version.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from pathlib import Path
 
 import torch
 
+from .. import spans
 from . import composite as plain
 from .binning import SlotTable, build_slots
 from .camera import PIX, Camera
@@ -193,6 +198,10 @@ def _window(cam: Camera, tile_lo: int, n_local: int | None) -> int:
     return n_local
 
 
+def _tiles(cam: Camera, tile_lo: int, n_local: int | None) -> int:
+    return cam.n_tiles - tile_lo if n_local is None else n_local
+
+
 def _windowed(cam: Camera, tile_lo: int, n_local: int) -> bool:
     return tile_lo != 0 or n_local != cam.n_tiles
 
@@ -233,21 +242,23 @@ def _no_work_on_cpu(work):
 def composite_fwd(packed, pair_gauss, tile_start, tile_count, cam: Camera, nc: int,
                   work=None, tile_lo: int = 0, n_local: int | None = None):
     """Kernel 1: (acc [n_local, nc, 256], tfin [n_local, 1, 256])."""
-    if not packed.is_cuda:
-        _no_work_on_cpu(work)
-        return plain.composite_fwd_plain(packed, pair_gauss, tile_start, tile_count, cam,
-                                         nc, tile_lo=tile_lo, n_local=n_local)
-    n_local = _window(cam, tile_lo, n_local)
-    _check_nc(FWD, nc, FWD_NC)
-    _check_bins(packed, pair_gauss, tile_start, tile_count, n_local, 6 + nc)
-    work_ptr = _work_ptr(work, packed.device)
-    acc = torch.empty((n_local, nc, PIX), dtype=torch.float32, device=packed.device)
-    tfin = torch.empty((n_local, 1, PIX), dtype=torch.float32, device=packed.device)
-    FWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
-               tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local, cam.n_tiles,
-               cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(), work_ptr, _stream(),
-               nc=nc, windowed=_windowed(cam, tile_lo, n_local))
-    return acc, tfin
+    with spans.span("kernel.composite_fwd", nc=nc, pairs=pair_gauss.shape[0],
+                    tiles=_tiles(cam, tile_lo, n_local)):
+        if not packed.is_cuda:
+            _no_work_on_cpu(work)
+            return plain.composite_fwd_plain(packed, pair_gauss, tile_start, tile_count, cam,
+                                             nc, tile_lo=tile_lo, n_local=n_local)
+        n_local = _window(cam, tile_lo, n_local)
+        _check_nc(FWD, nc, FWD_NC)
+        _check_bins(packed, pair_gauss, tile_start, tile_count, n_local, 6 + nc)
+        work_ptr = _work_ptr(work, packed.device)
+        acc = torch.empty((n_local, nc, PIX), dtype=torch.float32, device=packed.device)
+        tfin = torch.empty((n_local, 1, PIX), dtype=torch.float32, device=packed.device)
+        FWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
+                   tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local, cam.n_tiles,
+                   cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(), work_ptr, _stream(),
+                   nc=nc, windowed=_windowed(cam, tile_lo, n_local))
+        return acc, tfin
 
 
 def _check_grads(n_local, nc, acc, tfin, dacc, dtfin):
@@ -283,66 +294,71 @@ def composite_bwd_rows(packed, pair_gauss, tile_start, tile_count, acc, tfin, da
     the slots tile_start[t] .. tile_start[t] + tile_count[t] - 1 of each
     tile t, so pair_gauss must hold the window's pairs and no others, as
     `binning.build_bins` gives them (P = tile_start[-1] + tile_count[-1])."""
-    if not packed.is_cuda:
-        _no_work_on_cpu(work)
-        return plain.composite_bwd_pairs_plain(packed, pair_gauss, tile_start, tile_count,
-                                               acc, tfin, dacc, dtfin, cam, nc,
-                                               tile_lo=tile_lo, n_local=n_local)
-    n_local = _window(cam, tile_lo, n_local)
-    _check_nc(BWD, nc, BWD_NC)
-    _check_bins(packed, pair_gauss, tile_start, tile_count, n_local, 6 + nc)
-    _check_grads(n_local, nc, acc, tfin, dacc, dtfin)
-    work_ptr = _work_ptr(work, packed.device)
-    rows = torch.empty((pair_gauss.shape[0], 6 + nc), dtype=torch.float32,
-                       device=packed.device)
-    BWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
-               tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local, cam.n_tiles,
-               cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(), dacc.data_ptr(),
-               dtfin.data_ptr(), rows.data_ptr(), work_ptr, _stream(), nc=nc,
-               windowed=_windowed(cam, tile_lo, n_local))
-    return rows
+    with spans.span("kernel.composite_bwd_rows", nc=nc, pairs=pair_gauss.shape[0],
+                    tiles=_tiles(cam, tile_lo, n_local)):
+        if not packed.is_cuda:
+            _no_work_on_cpu(work)
+            return plain.composite_bwd_pairs_plain(packed, pair_gauss, tile_start, tile_count,
+                                                   acc, tfin, dacc, dtfin, cam, nc,
+                                                   tile_lo=tile_lo, n_local=n_local)
+        n_local = _window(cam, tile_lo, n_local)
+        _check_nc(BWD, nc, BWD_NC)
+        _check_bins(packed, pair_gauss, tile_start, tile_count, n_local, 6 + nc)
+        _check_grads(n_local, nc, acc, tfin, dacc, dtfin)
+        work_ptr = _work_ptr(work, packed.device)
+        rows = torch.empty((pair_gauss.shape[0], 6 + nc), dtype=torch.float32,
+                           device=packed.device)
+        BWD.launch(packed.data_ptr(), packed.shape[1], pair_gauss.data_ptr(),
+                   tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local, cam.n_tiles,
+                   cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(), dacc.data_ptr(),
+                   dtfin.data_ptr(), rows.data_ptr(), work_ptr, _stream(), nc=nc,
+                   windowed=_windowed(cam, tile_lo, n_local))
+        return rows
 
 
 def slot_reduce(rows, slots: SlotTable, n: int, windowed: bool = False):
     """Kernel 2's second pass: dpacked [n, 16], row g the sum of Gaussian g's
     slots' rows (rows [P, 6 + nc]) in ascending slot order, the columns past
     6 + nc zero. `windowed` counts the launch as a tile window's."""
-    if not rows.is_cuda:
-        return plain.slot_reduce_plain(rows, slots, n)
-    nf = rows.shape[1]
-    _check_nc(REDUCE, nf - 6, BWD_NC)
-    _check("rows", rows, torch.float32)
-    _check("gauss_start", slots.gauss_start, torch.int32, (n + 1,))
-    _check("gauss_slot", slots.gauss_slot, torch.int32, (rows.shape[0],))
-    for name, t in (("gauss_start", slots.gauss_start), ("gauss_slot", slots.gauss_slot)):
-        if t.device != rows.device:
-            raise ValueError(f"{name} is on {t.device}, rows on {rows.device}")
-    dpacked = torch.empty((n, 16), dtype=torch.float32, device=rows.device)
-    REDUCE.launch(rows.data_ptr(), nf, slots.gauss_start.data_ptr(),
-                  slots.gauss_slot.data_ptr(), n, dpacked.data_ptr(), _stream(), nc=nf - 6,
-                  windowed=windowed)
-    return dpacked
+    with spans.span("kernel.slot_reduce", nc=rows.shape[1] - 6, pairs=rows.shape[0], n=n):
+        if not rows.is_cuda:
+            return plain.slot_reduce_plain(rows, slots, n)
+        nf = rows.shape[1]
+        _check_nc(REDUCE, nf - 6, BWD_NC)
+        _check("rows", rows, torch.float32)
+        _check("gauss_start", slots.gauss_start, torch.int32, (n + 1,))
+        _check("gauss_slot", slots.gauss_slot, torch.int32, (rows.shape[0],))
+        for name, t in (("gauss_start", slots.gauss_start), ("gauss_slot", slots.gauss_slot)):
+            if t.device != rows.device:
+                raise ValueError(f"{name} is on {t.device}, rows on {rows.device}")
+        dpacked = torch.empty((n, 16), dtype=torch.float32, device=rows.device)
+        REDUCE.launch(rows.data_ptr(), nf, slots.gauss_start.data_ptr(),
+                      slots.gauss_slot.data_ptr(), n, dpacked.data_ptr(), _stream(), nc=nf - 6,
+                      windowed=windowed)
+        return dpacked
 
 
 def composite_pose_bwd(packed32, pair_gauss, tile_start, tile_count, acc, tfin,
                        dacc, dtfin, cam: Camera, nc: int, work=None, tile_lo: int = 0,
                        n_local: int | None = None):
     """Kernel 3: per-tile pose-gradient partials [n_local, 12]."""
-    if not packed32.is_cuda:
-        _no_work_on_cpu(work)
-        return plain.composite_pose_bwd_plain(packed32, pair_gauss, tile_start,
-                                              tile_count, acc, tfin, dacc, dtfin, cam,
-                                              nc, tile_lo=tile_lo, n_local=n_local)
-    n_local = _window(cam, tile_lo, n_local)
-    _check_nc(POSE_BWD, nc, POSE_BWD_NC)
-    _check_bins(packed32, pair_gauss, tile_start, tile_count, n_local, 28)
-    _check_grads(n_local, nc, acc, tfin, dacc, dtfin)
-    work_ptr = _work_ptr(work, packed32.device)
-    psum = torch.empty((n_local, 12), dtype=torch.float32, device=packed32.device)
-    POSE_BWD.launch(packed32.data_ptr(), packed32.shape[1], pair_gauss.data_ptr(),
-                    tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local,
-                    cam.n_tiles, cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(),
-                    dacc.data_ptr(), dtfin.data_ptr(), cam.fx, cam.fy, cam.cx - 0.5,
-                    cam.cy - 0.5, psum.data_ptr(), work_ptr, _stream(),
-                    nc=nc, windowed=_windowed(cam, tile_lo, n_local))
-    return psum
+    with spans.span("kernel.composite_pose_bwd", nc=nc, pairs=pair_gauss.shape[0],
+                    tiles=_tiles(cam, tile_lo, n_local)):
+        if not packed32.is_cuda:
+            _no_work_on_cpu(work)
+            return plain.composite_pose_bwd_plain(packed32, pair_gauss, tile_start,
+                                                  tile_count, acc, tfin, dacc, dtfin, cam,
+                                                  nc, tile_lo=tile_lo, n_local=n_local)
+        n_local = _window(cam, tile_lo, n_local)
+        _check_nc(POSE_BWD, nc, POSE_BWD_NC)
+        _check_bins(packed32, pair_gauss, tile_start, tile_count, n_local, 28)
+        _check_grads(n_local, nc, acc, tfin, dacc, dtfin)
+        work_ptr = _work_ptr(work, packed32.device)
+        psum = torch.empty((n_local, 12), dtype=torch.float32, device=packed32.device)
+        POSE_BWD.launch(packed32.data_ptr(), packed32.shape[1], pair_gauss.data_ptr(),
+                        tile_start.data_ptr(), tile_count.data_ptr(), tile_lo, n_local,
+                        cam.n_tiles, cam.tiles_x, nc, acc.data_ptr(), tfin.data_ptr(),
+                        dacc.data_ptr(), dtfin.data_ptr(), cam.fx, cam.fy, cam.cx - 0.5,
+                        cam.cy - 0.5, psum.data_ptr(), work_ptr, _stream(),
+                        nc=nc, windowed=_windowed(cam, tile_lo, n_local))
+        return psum

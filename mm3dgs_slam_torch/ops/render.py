@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from . import kernels
 from .binning import SlotTable, TileBins, build_bins
 from .camera import PIX, TILE, Camera
@@ -255,10 +256,14 @@ def render_tiles_pose(g: ActivatedGaussians, q, T, rs: RenderSettings,
 def render(g: ActivatedGaussians, camera_pose, rs: RenderSettings, bins: TileBins | None = None):
     """Render the map from a pose: the reference's dict (``render`` [3, H, W],
     ``depth`` [3, H, W] = expected depth, silhouette, E[z^2], ``radii``,
-    ``visibility_filter``) plus the projection and the bins used."""
-    proj = project_for_pose(g, camera_pose, rs)
+    ``visibility_filter``) plus the projection and the bins used (built
+    inside a `bins` span when None)."""
     if bins is None:
-        bins = build_bins(proj, rs.cam)
+        with spans.span("bins"):
+            proj = project_for_pose(g, camera_pose, rs)
+            bins = build_bins(proj, rs.cam)
+    else:
+        proj = project_for_pose(g, camera_pose, rs)
     acc, tfin = composite_packed(proj.packed, bins, rs.cam, 6)
     img6 = from_tiles(acc + tfin * background(rs, acc.device)[None, :, None], rs.cam)
     return {

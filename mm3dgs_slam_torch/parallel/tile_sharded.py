@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..ops.binning import TileBins, build_bins
 from ..ops.projection import ProjectedGaussians
 from ..ops.render import (ActivatedGaussians, RenderSettings, background, composite_packed,
@@ -81,10 +82,11 @@ def composite_tiles_sharded(proj: ProjectedGaussians, rs: RenderSettings, mesh: 
     """The image [nc, H, W] of the gathered projection `proj`, background
     applied: this rank's window through kernel 1 (kernel 2 backward), the
     slabs gathered. `bins` are this rank's window bins (built inline when
-    None)."""
+    None, inside a `bins` span)."""
     cam = rs.cam
     if bins is None:
-        bins = build_window_bins(proj, cam, mesh)
+        with spans.span("bins"):
+            bins = build_window_bins(proj, cam, mesh)
     lo, n_local = mesh.window(cam)
     acc, tfin = composite_packed(proj.packed, bins, cam, nc, lo, n_local)
     out = gather_tiles(acc + tfin * background(rs, acc.device)[:nc][None, :, None], mesh, cam)
@@ -109,11 +111,13 @@ def render_tiles_pose_sharded(g: ActivatedGaussians, q, T, rs: RenderSettings,
 def render_sharded(g: ActivatedGaussians, camera_pose, rs: RenderSettings, mesh: Mesh) -> dict:
     """`ops.render.render` of the sharded map: the reference's dict with the
     whole image on every rank; `radii` and `visibility_filter` are this
-    rank's rows, `bins` its window bins. In one process it is
-    `ops.render.render`, launch for launch."""
-    proj = project_for_pose(g, camera_pose, rs)
-    full = replicate_proj(proj, mesh)
-    bins = build_window_bins(full, rs.cam, mesh)
+    rank's rows, `bins` its window bins, built inside a `bins` span with
+    the projection. In one process it is `ops.render.render`, launch for
+    launch."""
+    with spans.span("bins"):
+        proj = project_for_pose(g, camera_pose, rs)
+        full = replicate_proj(proj, mesh)
+        bins = build_window_bins(full, rs.cam, mesh)
     img6 = composite_tiles_sharded(full, rs, mesh, 6, bins)
     return {"render": img6[:3], "depth": img6[3:6], "radii": proj.radius,
             "visibility_filter": proj.radius > 0, "proj": proj, "bins": bins}

@@ -25,6 +25,11 @@ reach them through the projection. Reproduced semantics, quirks included:
     before the map Adam (their moments still decay), and the pose Adam
     (`pose_adam`) steps on every iteration, prune iterations included.
 
+Spans (spans.py): `map.bins` for each segment's bins and `map.iter` for each
+iteration, holding `map.loss` (`map_loss`) and `map.backward` (the
+gradients); a `map.iter`'s self time is Adam, the densification stats and
+the prune.
+
 The state holds this rank's rows of the map sharded over `ms.mesh` (JAX
 map_opt.py:134-146, 209-216, 253-266, 392-400): the bins are this rank's
 tile window of the gathered projection, the loss reads the image gathered
@@ -40,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..models.gaussians import (AdamState, GaussianMap, MapOptHyper, adam_update,
                                 prune_mask_reference)
 from ..ops.binning import build_slots
@@ -143,10 +149,12 @@ def _grad_and_stats(st: MapState, bins, pose, i, gt_color, gt_depth, est_depth,
     if ms.do_BA:
         pose = pose.detach().requires_grad_(True)
         wrt.append(pose)
-    loss, radii, visible = map_loss(m, screen, pose, gt_color, gt_depth, est_depth, bins, ms,
-                                    counts)
-    grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-    grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip(wrt, grads)]
+    with spans.span("map.loss"):
+        loss, radii, visible = map_loss(m, screen, pose, gt_color, gt_depth, est_depth, bins,
+                                        ms, counts)
+    with spans.span("map.backward"):
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip(wrt, grads)]
     gm, g_screen = GaussianMap(*grads[:len(leaves)]), grads[len(leaves)]
     g_pose = grads[-1] if ms.do_BA else None
     if g_pose is not None:
@@ -229,24 +237,29 @@ def optimize_map(st: MapState, kf_colors, kf_depths, kf_ests, kf_poses, schedule
     mesh = ms.mesh
     counts = mesh.row_counts(st.m.n)
     for kind, k, base_i, n in plan_segments(schedule, ms):
-        bins = _map_bins(st.m, pa.poses[k], ms, counts)
+        prune = kind == "prune"
+        with spans.span("map.bins", k=k, n=n, prune=prune):
+            bins = _map_bins(st.m, pa.poses[k], ms, counts)
         for i in range(base_i, base_i + n):
-            loss, gm, g_pose, max_radii, grad_accum, denom = _grad_and_stats(
-                st, bins, pa.poses[k], i, kf_colors[k], kf_depths[k], kf_ests[k], ms, counts)
-            if kind == "prune":
-                size = None if ms.method == "splatam" else ms.size_threshold
-                pmask = prune_mask_reference(st.m, camera_extent, ms.min_opacity,
-                                             max_radii, size)
-                m, adam, extras = prune_compact_sharded(
-                    st.m, st.adam, ~pmask, mesh,
-                    extras=(max_radii, grad_accum, denom, st.ba_mask))
-                counts = mesh.row_counts(m.n)
-                st = MapState(m, adam, *extras[:3], loss, extras[3])
-            else:
-                with torch.no_grad():
-                    m, adam = adam_update(st.m, gm, st.adam, ms.hyper, row_mask=st.ba_mask)
-                st = MapState(m, adam, max_radii, grad_accum, denom, loss, st.ba_mask)
-            if ms.do_BA:
-                with torch.no_grad():
-                    pa = pose_adam(pa, k, g_pose, ms)
+            with spans.span("map.iter", i=i, prune=prune):
+                loss, gm, g_pose, max_radii, grad_accum, denom = _grad_and_stats(
+                    st, bins, pa.poses[k], i, kf_colors[k], kf_depths[k], kf_ests[k], ms,
+                    counts)
+                if prune:
+                    size = None if ms.method == "splatam" else ms.size_threshold
+                    pmask = prune_mask_reference(st.m, camera_extent, ms.min_opacity,
+                                                 max_radii, size)
+                    m, adam, extras = prune_compact_sharded(
+                        st.m, st.adam, ~pmask, mesh,
+                        extras=(max_radii, grad_accum, denom, st.ba_mask))
+                    counts = mesh.row_counts(m.n)
+                    st = MapState(m, adam, *extras[:3], loss, extras[3])
+                else:
+                    with torch.no_grad():
+                        m, adam = adam_update(st.m, gm, st.adam, ms.hyper,
+                                              row_mask=st.ba_mask)
+                    st = MapState(m, adam, max_radii, grad_accum, denom, loss, st.ba_mask)
+                if ms.do_BA:
+                    with torch.no_grad():
+                        pa = pose_adam(pa, k, g_pose, ms)
     return st._replace(kf_poses=pa.poses)

@@ -8,11 +8,10 @@ Host randomness is one `np.random.default_rng(cfg seed)` stream drawn in the
 JAX package's call order (splatam's pixel sample, the window permutation,
 then the schedule), so windows and schedules match it.
 
-With `debug.frame_decomp` on (the SLAM sets `decomp_on` and shares its
-`decomp` dict) `run_frame` books its wall time to the JAX package's map.*
-phases: covis_set, niqe (the NIQE score), kf_decision (the rest of the
-keyframe decision), candidates, add_keyframe, window_upload, ba_mask and
-optimize, each ending at a card synchronize.
+`run_frame` opens a phase span (spans.py) for each of the JAX package's
+map.* phases of `debug.frame_decomp`: covis_set, kf_decision with niqe (the
+NIQE score) inside it, candidates, add_keyframe, window_upload, ba_mask and
+optimize.
 
 The map passed in and out is this rank's rows of the map sharded over
 `mesh` (JAX mapper.py:435-441; one process by default): the keyframe,
@@ -24,7 +23,6 @@ this rank's rows, and only rank 0 writes the keyframe PNGs.
 from __future__ import annotations
 
 import os
-import time
 from collections import defaultdict, deque
 from dataclasses import dataclass
 from typing import List, Optional
@@ -32,6 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..eval.quality import FrameQuality
 from ..models import gaussians as G
 from ..ops.render import RenderSettings
@@ -83,8 +82,6 @@ class Mapper:
         self.rng = np.random.default_rng(cfg.get("seed", 0))
         self.mapping_time_sum = 0.0
         self.mapping_iter_count = 0
-        self.decomp_on = False
-        self.decomp = defaultdict(float)
 
         z = torch.zeros((0,), dtype=torch.float32, device=device)
         self.max_radii, self.grad_accum, self.denom = z, z, z
@@ -115,28 +112,18 @@ class Mapper:
     def _dev(self, x):
         return None if x is None else torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    def _ph(self, name: str, t0: float) -> float:
-        """Book the time since t0 to a map.* phase (ending at a card
-        synchronize while the decomposition is on); returns a fresh t0."""
-        if not self.decomp_on:
-            return t0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        self.decomp[name] += t1 - t0
-        return t1
-
     # -- keyframe decision (mapper.py:103-173) ---------------------------
     def need_new_keyframe(self, idx, g_act, est_pose, gt_color_np, gt_depth_np,
                           est_depth_np, n_img: int) -> bool:
         mp = self.cfg["mapping"]
+        niqe = mp["niqe_kf"] and self.method != "splatam"
+        # a map.niqe span on every frame: the JAX package books the phase on
+        # every frame, scored or not
+        with spans.span("map.niqe"):
+            score = self.quality(gt_color_np) if niqe else None
         if self.method == "splatam":
             return idx == 0 or (idx + 1) % mp["kf_every"] == 0 or idx == n_img - 2
-        if mp["niqe_kf"]:
-            t0 = time.perf_counter()
-            score = self.quality(gt_color_np)
-            if self.decomp_on:
-                self.decomp["map.niqe"] += time.perf_counter() - t0
+        if niqe:
             curr = KeyFrame(idx, gt_color_np, np.asarray(est_pose), gt_depth_np,
                             est_depth_np, score)
             if idx >= mp["niqe_window_size"]:
@@ -281,62 +268,60 @@ class Mapper:
         adjustment the current frame's slot of the optimized window.
         gt_color/gt_depth/est_depth are device tensors (est_depth may be
         None); the *_np arrays feed keyframes."""
-        t0 = time.perf_counter()
-        g_act = m.activated()
-        window = self.get_covisible_set(idx, g_act, est_pose, gt_depth,
-                                        N=self.cfg["mapping"]["covisibility_level"])
-        t0 = self._ph("map.covis_set", t0)
-        if self.max_radii.shape[0] != m.n:
-            self.max_radii = torch.zeros((m.n,), dtype=torch.float32, device=self.device)
-            self.grad_accum = torch.zeros_like(self.max_radii)
-            self.denom = torch.zeros_like(self.max_radii)
-
+        with spans.phase("map.covis_set"):
+            g_act = m.activated()
+            window = self.get_covisible_set(idx, g_act, est_pose, gt_depth,
+                                            N=self.cfg["mapping"]["covisibility_level"])
         added = None   # [m.n] bool: the rows appended on this rank this frame
-        niqe_before = self.decomp["map.niqe"] if self.decomp_on else 0.0
-        is_new_kf = self.need_new_keyframe(idx, g_act, est_pose, gt_color_np, gt_depth_np,
-                                           est_depth_np, n_img)
-        if self.decomp_on:
-            # the NIQE seconds went to map.niqe; the rest of the decision here
-            t0 = self._ph("map.kf_decision", t0 + self.decomp["map.niqe"] - niqe_before)
+        with spans.phase("map.kf_decision"):   # map.niqe lies inside it
+            if self.max_radii.shape[0] != m.n:
+                self.max_radii = torch.zeros((m.n,), dtype=torch.float32, device=self.device)
+                self.grad_accum = torch.zeros_like(self.max_radii)
+                self.denom = torch.zeros_like(self.max_radii)
+            is_new_kf = self.need_new_keyframe(idx, g_act, est_pose, gt_color_np, gt_depth_np,
+                                               est_depth_np, n_img)
         if is_new_kf:
-            depth_for_init = gt_depth if self.cfg["use_gt_depth"] else est_depth
-            stats = new_gaussian_candidates(
-                g_act, self._dev(est_pose), gt_color, depth_for_init, self.rs,
-                first_frame=(idx == 0 and len(self.keyframes) == 0), method=self.method,
-                mesh=self.mesh)
-            m, adam, _, added = append_gaussians_sharded(m, adam, stats.candidates, self.mesh)
-            # densification resets the stats (gaussian_model.py:482-488)
-            self.max_radii = torch.zeros((m.n,), dtype=torch.float32, device=self.device)
-            self.grad_accum = torch.zeros_like(self.max_radii)
-            self.denom = torch.zeros_like(self.max_radii)
-            t0 = self._ph("map.candidates", t0)
-            self.add_keyframe(idx, est_pose, gt_color_np, gt_depth_np, est_depth_np, m.activated())
-            t0 = self._ph("map.add_keyframe", t0)
+            with spans.phase("map.candidates"):
+                depth_for_init = gt_depth if self.cfg["use_gt_depth"] else est_depth
+                stats = new_gaussian_candidates(
+                    g_act, self._dev(est_pose), gt_color, depth_for_init, self.rs,
+                    first_frame=(idx == 0 and len(self.keyframes) == 0), method=self.method,
+                    mesh=self.mesh)
+                m, adam, _, added = append_gaussians_sharded(m, adam, stats.candidates,
+                                                             self.mesh)
+                # densification resets the stats (gaussian_model.py:482-488)
+                self.max_radii = torch.zeros((m.n,), dtype=torch.float32, device=self.device)
+                self.grad_accum = torch.zeros_like(self.max_radii)
+                self.denom = torch.zeros_like(self.max_radii)
+            with spans.phase("map.add_keyframe"):
+                self.add_keyframe(idx, est_pose, gt_color_np, gt_depth_np, est_depth_np,
+                                  m.activated())
 
-        zeros = torch.zeros_like(gt_color[0])
-        frames = [self._kf_tensors[k] for k in window] + [(gt_color, gt_depth, est_depth)]
-        kf_colors = torch.stack([f[0] for f in frames])
-        kf_depths = torch.stack([zeros if f[1] is None else f[1] for f in frames])
-        kf_ests = torch.stack([zeros if f[2] is None else f[2] for f in frames])
-        poses = [self._kf_poses[k] for k in window] + [est_pose]
-        kf_poses = torch.as_tensor(np.stack(poses), dtype=torch.float32, device=self.device)
-        schedule = self._build_schedule(len(frames))
-        t0 = self._ph("map.window_upload", t0)
+        with spans.phase("map.window_upload"):
+            zeros = torch.zeros_like(gt_color[0])
+            frames = [self._kf_tensors[k] for k in window] + [(gt_color, gt_depth, est_depth)]
+            kf_colors = torch.stack([f[0] for f in frames])
+            kf_depths = torch.stack([zeros if f[1] is None else f[1] for f in frames])
+            kf_ests = torch.stack([zeros if f[2] is None else f[2] for f in frames])
+            poses = [self._kf_poses[k] for k in window] + [est_pose]
+            kf_poses = torch.as_tensor(np.stack(poses), dtype=torch.float32,
+                                       device=self.device)
+            schedule = self._build_schedule(len(frames))
 
         ba = self.opt_settings.do_BA and idx > 0
         ba_mask = None
-        if ba:
-            # the rows seen from 2 window views, and those appended this
-            # frame (mapper.py:931-936)
-            ba_mask = covisible_gaussian_mask(m.activated(), kf_poses, self.rs, 2)
-            if added is not None:
-                ba_mask |= added
-        t0 = self._ph("map.ba_mask", t0)
-        st = optimize_map(MapState(m, adam, self.max_radii, self.grad_accum, self.denom,
-                                   ba_mask=ba_mask),
-                          kf_colors, kf_depths, kf_ests, kf_poses, schedule,
-                          self.camera_extent, self.opt_settings)
-        self._ph("map.optimize", t0)
+        with spans.phase("map.ba_mask"):
+            if ba:
+                # the rows seen from 2 window views, and those appended this
+                # frame (mapper.py:931-936)
+                ba_mask = covisible_gaussian_mask(m.activated(), kf_poses, self.rs, 2)
+                if added is not None:
+                    ba_mask |= added
+        with spans.phase("map.optimize"):
+            st = optimize_map(MapState(m, adam, self.max_radii, self.grad_accum, self.denom,
+                                       ba_mask=ba_mask),
+                              kf_colors, kf_depths, kf_ests, kf_poses, schedule,
+                              self.camera_extent, self.opt_settings)
         self.max_radii, self.grad_accum, self.denom = st.max_radii, st.grad_accum, st.denom
         pose = est_pose
         if ba:

@@ -25,16 +25,19 @@ the run then starts again from frame 0 on that map). The frame loop reads
 its frames through a one-frame-ahead prefetch thread (`tpu.prefetch`, on by
 default, data/prefetch.py); everything else reads the dataset directly.
 
-Two debug switches measure a run (the JAX package's keys):
-`debug.frame_decomp` books each frame's wall time to the phases data,
-depth_est, track, depth_fit, overflow_check (binning is sized exactly, so
-it checks nothing; kept so the table's rows are the JAX package's) and
-logging, and the mapper's map.* phases; each phase ends at
+Two debug switches measure a run (the JAX package's keys); either turns
+on the port's spans (spans.py: each frame, phase, loop iteration, bin build
+and kernel launch). `debug.frame_decomp` books each frame's wall time to the
+phase spans data, depth_est, track, depth_fit, overflow_check (binning is
+sized exactly, so it checks nothing; kept so the table's rows are the JAX
+package's) and logging, and the mapper's map.* phases; a phase's time is its
+span's less the phase spans nested in it, each phase ends at
 `torch.cuda.synchronize` (only while the switch is on), the table of
 per-frame medians is printed and results.npz gains frame_decomp,
 frame_decomp_phases and frame_decomp_rows. `debug.jax_profiler_dir` traces
 the whole run with torch.profiler (CPU and, on the card, CUDA activities)
-and writes a Chrome trace ``trace.json`` into that directory.
+and writes a Chrome trace ``trace.json`` into that directory, the spans in
+it as complete events on the profiler's clock, above the kernels.
 
 `tpu.mesh_devices: W > 1` runs the sharded map (parallel/, JAX slam.py:160-187)
 in W processes started by ``torchrun --standalone --nproc_per_node W``: each
@@ -57,6 +60,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from .. import spans
 from ..config import normalize_config, resolve_device
 from ..data import get_dataset_type
 from ..data.prefetch import Prefetcher
@@ -75,6 +79,12 @@ from ..parallel.sharded import gather_rows, shard_map_state
 from ..parallel.tile_sharded import render_sharded
 from .mapper import KeyFrame, Mapper
 from .tracker import TrackSettings, track_frame
+
+
+# the rows of debug.frame_decomp: the JAX package's phases, each a phase span
+DECOMP_PHASES = ("data", "depth_est", "track", "depth_fit", "overflow_check", "logging",
+                 "map.covis_set", "map.niqe", "map.kf_decision", "map.candidates",
+                 "map.add_keyframe", "map.window_upload", "map.ba_mask", "map.optimize")
 
 
 def _pose7(w2c: np.ndarray) -> np.ndarray:
@@ -166,13 +176,9 @@ class SLAM:
         self.rendering_time_sum = 0.0
         self.rendering_iter_count = 0
         self.frame_seconds: list[float] = []  # wall time of each completed frame
-        # debug.frame_decomp: phase -> seconds over the run, shared with the
-        # mapper, and each frame's deltas (the medians are the steady state)
-        self.frame_decomp = defaultdict(float)
-        self.frame_decomp_rows: list[dict] = []
         self._decomp_on = bool(cfg["debug"].get("frame_decomp"))
-        self.mapper.decomp_on = self._decomp_on
-        self.mapper.decomp = self.frame_decomp
+        # the spans of the last run, with debug.frame_decomp or jax_profiler_dir
+        self.span_records: list[dict] = []
 
     def load_checkpoint(self, iteration: int):
         """The map of ``point_cloud/iteration_N`` and the poses of
@@ -270,17 +276,16 @@ class SLAM:
         print("Method: " + self.cfg["method"])
         last_idx = 0
         prof = self._start_profiler()
+        traced = self._decomp_on or prof is not None
+        if traced:
+            spans.reset()
+            spans.enable(sync=self._sync if self._decomp_on else None)
         try:
             for idx in range(self.n_img):
                 t_frame = time.perf_counter()
-                before = dict(self.frame_decomp)
                 self._step(idx)
                 self._sync()
                 self.frame_seconds.append(time.perf_counter() - t_frame)
-                if self._decomp_on:
-                    self.frame_decomp_rows.append({
-                        k: v - before.get(k, 0.0) for k, v in self.frame_decomp.items()
-                        if v - before.get(k, 0.0) > 0.0})
                 if self.cfg["debug"].get("get_runtime_stats"):
                     n = self.n_gaussians()
                     if self.is_writer:
@@ -296,6 +301,9 @@ class SLAM:
                 raise   # the save needs every rank: end this rank's run
             print("\nSLAM failed. Saving map and results.\n")
         finally:
+            if traced:
+                spans.disable()
+                self.span_records = spans.records()
             if prof is not None:
                 self._stop_profiler(prof)
             self._frames.close()
@@ -355,76 +363,69 @@ class SLAM:
         trace_dir = str(self.cfg["debug"]["jax_profiler_dir"])
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        spans.add_to_chrome_trace(os.path.join(trace_dir, "trace.json"), self.span_records)
         print(f"torch profiler trace written to {trace_dir}")
 
-    def _phase(self, name: str, t0: float) -> float:
-        """Book the time since t0 to a frame-decomposition phase, which ends
-        at a card synchronize; returns a fresh t0."""
-        if not self._decomp_on:
-            return t0
-        self._sync()
-        t1 = time.perf_counter()
-        self.frame_decomp[name] += t1 - t0
-        return t1
-
     def _step(self, idx: int):
-        t0 = time.perf_counter()
-        gt_color_np, gt_depth_np, _, gt_c2w, imu_meas = self._frames[idx]
-        gt_depth_np = gt_depth_np[..., 0]
-        gt_w2c = np.linalg.inv(gt_c2w)
-        gt_color_np = np.transpose(gt_color_np, (2, 0, 1)) / 255.0
-        gt_color = self._dev(gt_color_np)
-        gt_depth = self._dev(gt_depth_np)
-        t0 = self._phase("data", t0)
+        with spans.span("frame", idx=idx):
+            with spans.phase("data"):
+                gt_color_np, gt_depth_np, _, gt_c2w, imu_meas = self._frames[idx]
+                gt_depth_np = gt_depth_np[..., 0]
+                gt_w2c = np.linalg.inv(gt_c2w)
+                gt_color_np = np.transpose(gt_color_np, (2, 0, 1)) / 255.0
+                gt_color = self._dev(gt_color_np)
+                gt_depth = self._dev(gt_depth_np)
 
-        est_depth = None
-        if self.dpt is not None:
-            if hasattr(self.dpt, "gt_depth"):
-                self.dpt.gt_depth = gt_depth_np
-            est_depth = self.dpt.estimate_depth(gt_color_np)
-            t0 = self._phase("depth_est", t0)
+            est_depth = None
+            if self.dpt is not None:
+                with spans.phase("depth_est"):
+                    if hasattr(self.dpt, "gt_depth"):
+                        self.dpt.gt_depth = gt_depth_np
+                    est_depth = self.dpt.estimate_depth(gt_color_np)
 
-        if idx == 0 or self.cfg["tracking"]["use_gt_pose"]:
-            self.estimate_pose_list[idx] = _pose7(gt_w2c)
-        else:
-            seed = self._seed_pose(idx, imu_meas)
-            self.seed_pose_list[idx] = seed
-            self._sync()
-            t1 = time.perf_counter()
-            pose, _ = track_frame(self.gaussians.activated(), self._dev(seed), gt_color,
-                                  gt_depth, torch.zeros_like(gt_depth) if est_depth is None
-                                  else est_depth, self.track_settings)
-            pose = pose.cpu().numpy()
-            if self.cfg["debug"]["get_runtime_stats"]:
-                self.tracking_time_sum += time.perf_counter() - t1
-                self.tracking_iter_count += self.track_settings.iters
-            self.estimate_pose_list[idx] = pose
-        t0 = self._phase("track", t0)
+            with spans.phase("track"):
+                if idx == 0 or self.cfg["tracking"]["use_gt_pose"]:
+                    self.estimate_pose_list[idx] = _pose7(gt_w2c)
+                else:
+                    seed = self._seed_pose(idx, imu_meas)
+                    self.seed_pose_list[idx] = seed
+                    self._sync()
+                    t1 = time.perf_counter()
+                    pose, _ = track_frame(self.gaussians.activated(), self._dev(seed), gt_color,
+                                          gt_depth, torch.zeros_like(gt_depth) if est_depth is None
+                                          else est_depth, self.track_settings)
+                    pose = pose.cpu().numpy()
+                    if self.cfg["debug"]["get_runtime_stats"]:
+                        self.tracking_time_sum += time.perf_counter() - t1
+                        self.tracking_iter_count += self.track_settings.iters
+                    self.estimate_pose_list[idx] = pose
 
-        est_scaled = est_scaled_np = None
-        if est_depth is not None:
-            est_scaled = self._fit_est_depth(idx, est_depth, gt_depth)
-            est_scaled_np = est_scaled.cpu().numpy()
-            t0 = self._phase("depth_fit", t0)
-        if idx == 0:
-            self.mapper.camera_extent = self.get_scene_radius(
-                gt_depth if est_scaled is None else est_scaled)
-        self._sync()
-        t1 = time.perf_counter()
-        self.gaussians, self.adam, self.estimate_pose_list[idx] = self.mapper.run_frame(
-            idx, self.gaussians, self.adam, self.estimate_pose_list[idx], gt_color,
-            gt_depth, est_scaled, gt_color_np, gt_depth_np, est_scaled_np, self.n_img)
-        self._sync()
-        if self.cfg["debug"]["get_runtime_stats"]:
-            self.mapper.mapping_time_sum += time.perf_counter() - t1
-            self.mapper.mapping_iter_count += self.mapper.num_iter
-        # the mapper booked its own map.* phases; binning is sized exactly,
-        # so the overflow check has nothing to fetch
-        t0 = self._phase("overflow_check", time.perf_counter())
-        self.gt_pose_list[idx] = _pose7(gt_w2c)
-        if self.cfg["debug"]["create_video"] and idx > 0:
-            self._write_video_frame(idx, gt_color_np, gt_depth_np, est_scaled_np)
-        self._phase("logging", t0)
+            est_scaled = est_scaled_np = None
+            if est_depth is not None:
+                with spans.phase("depth_fit"):
+                    est_scaled = self._fit_est_depth(idx, est_depth, gt_depth)
+                    est_scaled_np = est_scaled.cpu().numpy()
+            if idx == 0:
+                self.mapper.camera_extent = self.get_scene_radius(
+                    gt_depth if est_scaled is None else est_scaled)
+            # the mapper's map.* phase spans lie inside this one
+            with spans.span("map"):
+                self._sync()
+                t1 = time.perf_counter()
+                self.gaussians, self.adam, self.estimate_pose_list[idx] = self.mapper.run_frame(
+                    idx, self.gaussians, self.adam, self.estimate_pose_list[idx], gt_color,
+                    gt_depth, est_scaled, gt_color_np, gt_depth_np, est_scaled_np, self.n_img)
+                self._sync()
+                if self.cfg["debug"]["get_runtime_stats"]:
+                    self.mapper.mapping_time_sum += time.perf_counter() - t1
+                    self.mapper.mapping_iter_count += self.mapper.num_iter
+            # binning is sized exactly, so the overflow check has nothing to fetch
+            with spans.phase("overflow_check"):
+                pass
+            with spans.phase("logging"):
+                self.gt_pose_list[idx] = _pose7(gt_w2c)
+                if self.cfg["debug"]["create_video"] and idx > 0:
+                    self._write_video_frame(idx, gt_color_np, gt_depth_np, est_scaled_np)
 
     @torch.no_grad()
     def render_eval(self, idx: int):
@@ -538,15 +539,23 @@ class SLAM:
             results["avg_rendering_time"] = r_it * 1000
         results["binning_overflow_frames"] = np.zeros((0,), np.int64)
         if self._decomp_on and last_idx > 0:
-            results.update(self._decomp_table())
+            results.update(self._decomp_table(last_idx))
         np.savez(os.path.join(self.output, "results"), **results)
         print("Results saved to " + os.path.join(self.output, "results.npz"))
 
-    def _decomp_table(self) -> dict:
-        """Print the per-frame decomposition (median over frames = steady
-        state, and mean) and return its results.npz entries."""
-        phases = sorted(self.frame_decomp, key=self.frame_decomp.get, reverse=True)
-        rows = self.frame_decomp_rows
+    def _decomp_table(self, last_idx: int) -> dict:
+        """Print the per-frame decomposition of frames 0 .. last_idx - 1
+        (median over frames = steady state, and mean) from the phase spans
+        and return its results.npz entries."""
+        rows = [defaultdict(float) for _ in range(last_idx)]
+        for frame, name, ns in spans.self_ns(self.span_records, DECOMP_PHASES):
+            if frame is not None and frame < last_idx:
+                rows[frame][name] += ns * 1e-9
+        totals = defaultdict(float)
+        for r in rows:
+            for name, sec in r.items():
+                totals[name] += sec
+        phases = sorted(totals, key=totals.get, reverse=True)
         print(f"\nPer-frame wall decomposition (debug.frame_decomp, {len(rows)} frames; "
               "median = steady state):")
         print(f"  {'phase':<24s} {'median':>10s} {'mean':>10s}  ms/frame")
@@ -558,7 +567,7 @@ class SLAM:
             tot_mean += mean
             print(f"  {name:<24s} {med * 1000:>10.1f} {mean * 1000:>10.1f}")
         print(f"  {'(sum)':<24s} {tot_med * 1000:>10.1f} {tot_mean * 1000:>10.1f}")
-        return {"frame_decomp": np.array(dict(self.frame_decomp), dtype=object),
+        return {"frame_decomp": np.array(dict(totals), dtype=object),
                 "frame_decomp_phases": np.asarray(phases, dtype=object),
                 "frame_decomp_rows": np.asarray(
                     [[r.get(name, 0.0) for name in phases] for r in rows], np.float64)}

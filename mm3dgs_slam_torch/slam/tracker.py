@@ -20,6 +20,9 @@ slam/tracker.py:45-266).
   * the returned pose is the LAST iteration's, reproducing the reference's
     ineffective best-candidate rebinding (tracker.py:167-181).
 
+Each iteration is a `track.iter` span (spans.py) holding `track.bins` (on a
+rebin), `track.loss` and `track.backward`; its self time is the Adam step.
+
 The render goes through the mesh (JAX tracker.py:176-180, 262-278): `g` is
 this rank's rows of the sharded map, the bins are this rank's tile window of
 the gathered projection, the render is
@@ -34,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from ..ops.losses import masked_mean, masked_sum, pearson_loss, rel_pose_loss
 from ..ops.render import (ActivatedGaussians, RenderSettings, project_for_pose,
                           tile_pixel_valid, to_tiles)
@@ -123,22 +127,26 @@ def track_frame(g: ActivatedGaussians, pose_init, gt_color, gt_depth, est_depth,
     loss = torch.zeros((), device=q.device)
     bins = None
     for i in range(ts.iters):
-        if i % rebin == 0:
+        rebins = i % rebin == 0
+        with spans.span("track.iter", i=i, rebin=rebins):
+            if rebins:
+                with spans.span("track.bins"), torch.no_grad():
+                    bins = _bins(g, torch.cat([q, T]), ts, counts)
+            qv = q.requires_grad_(True)
+            Tv = T.requires_grad_(True)
+            with spans.span("track.loss"):
+                loss = tracking_loss_tiles(g, qv, Tv, gt_color_t, gt_depth_t, est_depth_t,
+                                           valid, initial_pose, ts, bins, counts)
+            with spans.span("track.backward"):
+                gq, gT = torch.autograd.grad(loss, (qv, Tv))
             with torch.no_grad():
-                bins = _bins(g, torch.cat([q, T]), ts, counts)
-        qv = q.requires_grad_(True)
-        Tv = T.requires_grad_(True)
-        loss = tracking_loss_tiles(g, qv, Tv, gt_color_t, gt_depth_t, est_depth_t,
-                                   valid, initial_pose, ts, bins, counts)
-        gq, gT = torch.autograd.grad(loss, (qv, Tv))
-        with torch.no_grad():
-            step = i + 1
-            bc1 = 1.0 - ts.b1 ** step
-            bc2_sqrt = (1.0 - ts.b2 ** step) ** 0.5
-            mq = ts.b1 * mq + (1 - ts.b1) * gq
-            vq = ts.b2 * vq + (1 - ts.b2) * gq * gq
-            q = q.detach() - ts.rotation_lr * (mq / bc1) / (torch.sqrt(vq) / bc2_sqrt + ts.eps)
-            mT = ts.b1 * mT + (1 - ts.b1) * gT
-            vT = ts.b2 * vT + (1 - ts.b2) * gT * gT
-            T = T.detach() - ts.position_lr * (mT / bc1) / (torch.sqrt(vT) / bc2_sqrt + ts.eps)
+                step = i + 1
+                bc1 = 1.0 - ts.b1 ** step
+                bc2_sqrt = (1.0 - ts.b2 ** step) ** 0.5
+                mq = ts.b1 * mq + (1 - ts.b1) * gq
+                vq = ts.b2 * vq + (1 - ts.b2) * gq * gq
+                q = q.detach() - ts.rotation_lr * (mq / bc1) / (torch.sqrt(vq) / bc2_sqrt + ts.eps)
+                mT = ts.b1 * mT + (1 - ts.b1) * gT
+                vT = ts.b2 * vT + (1 - ts.b2) * gT * gT
+                T = T.detach() - ts.position_lr * (mT / bc1) / (torch.sqrt(vT) / bc2_sqrt + ts.eps)
     return torch.cat([q, T]).detach(), loss.detach()
