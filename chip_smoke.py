@@ -5,7 +5,7 @@
 
 Phases (each passes or the script exits non-zero):
   1. device: the card's name and count, and nvidia-smi's name/power limit;
-  2. build: the three CUDA sources in this checkout (kernel 2's source holds
+  2. build: the four CUDA sources in this checkout (kernel 2's source holds
      its two passes);
   3. kernels against their plain PyTorch versions at 640x480, on a map seeded
      from phase 4's first frame (synthetic_tum on the JAX package's scene,
@@ -23,16 +23,21 @@ Phases (each passes or the script exits non-zero):
      binning); then the slot reduce on the mapping bins the bench times
      (bench.build_scene's 131,072 Gaussians at the identity pose): its
      segment lengths, bit-equal to its second launch and the plain reduce,
-     its time beside index_add_'s and its bound;
+     its time beside index_add_'s and its bound; last, kernel 4 (tracking's
+     pose rows [N, 32]) on the same map at frame 1's pose (~307k rows):
+     columns 0-15 within IMG_TOL of its plain version, the conic Jacobian
+     16-24 within GRAD_TOL, 25-31 equal, its time beside its bytes bound and
+     the plain version's;
   3b. the same checks at UTMM.yml's 640x330 (the last tile row partial), on
      the first frame of the UT-MM sequence of phase 5 seeded one Gaussian per
      pixel and seen from its second frame: kernel 1 at nc 4 and 5, kernel 2
-     at nc 4 (mapping with the depth-estimate loss), kernel 3 at nc 5;
+     at nc 4 (mapping with the depth-estimate loss), kernel 3 at nc 5,
+     kernel 4 under UTMM.yml's force_isotropic (scale column 0 for all three);
   3c. the same at replica.yml's 600x340 (37.5 x 21.25 tiles: the last tile
      column 8 pixels wide, the last row 4 high), on the Replica-layout
      sequence of phase 10: kernel 1 at nc 3, 4 and 5, kernel 2 at nc 4 (the
      width replica.yml maps at: its mapping.use_depth_estimate_loss is on),
-     kernel 3 at nc 5;
+     kernel 3 at nc 5, kernel 4;
   3d. the three kernels over the tile windows of 2 and 7 ranks (the
      tile-sharded render's launches: grid n_local, tile tile_lo + block) on
      phase 3's scene: every window against its windowed plain version (kernel
@@ -119,10 +124,10 @@ Phases (each passes or the script exits non-zero):
      byte-equal to phases 4's and 8's (both runs' ATE and PSNR printed);
  16. configs/synthetic.yml, the repo's own config (120x160, 8 frames, 40/60
      iterations, rebin_every 1, NIQE keyframes), on the JAX package's scene
-     of it (mm3dgs_slam_torch/assets/jax_scene_synthetic.npz): the four
+     of it (mm3dgs_slam_torch/assets/jax_scene_synthetic.npz): the five
      launches against their plain versions on its frames 0 and 1 (kernel 1
-     at nc 3, 5 and 6, kernel 2's rows and reduce at nc 3, kernel 3 at nc 5;
-     80 tiles, under one wave of the card's SMs), then the whole config
+     at nc 3, 5 and 6, kernel 2's rows and reduce at nc 3, kernel 3 at nc 5,
+     kernel 4; 80 tiles, under one wave of the card's SMs), then the whole config
      through the CLI's `run` with mapping.do_BA off and then on: ATE < 0.03
      m and PSNR > 17 dB each, each run's drift from GT per frame, both ATEs
      and their ratio printed on one `[synthetic]` line beside phases 8 /
@@ -558,6 +563,56 @@ def check_kernels(scene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5, 6), tag="chec
         row[f"nc{nc}"] = k3[nc]
     rows.append(row)
     return rows
+
+
+def check_pose_rows(scene, tag="check"):
+    """Kernel 4 against its plain version on `scene` (check_scene's tuple:
+    the map at frame 1's pose, under the scene's own force_isotropic):
+    columns 0-15 within IMG_TOL, the conic Jacobian 16-24 within GRAD_TOL,
+    the world mean and the zeros 25-31 equal; its time beside its bytes
+    bound and the plain version's. Returns the kernels line's row."""
+    import torch
+
+    from mm3dgs_slam_torch.ops import kernels
+    from mm3dgs_slam_torch.ops.projection import pose_rows_plain
+    from mm3dgs_slam_torch.ops.render import isotropic
+    from mm3dgs_slam_torch.ops.tolerances import GRAD_TOL, IMG_TOL
+
+    g, pose1, rs, _, _ = scene
+    n = g.xyz.shape[0]
+    iso = isotropic(rs)
+    args = (g, pose1[:4], pose1[4:], rs.cam, iso)
+    with torch.no_grad():
+        rows_k = kernels.pose_rows(*args)
+        rows_p = pose_rows_plain(*args)
+        tk = cuda_ms(lambda: kernels.pose_rows(*args), 20)
+        tp = cuda_ms(lambda: pose_rows_plain(*args), 3)
+    err_i, ok_i = max_violation(rows_k[:, :16], rows_p[:, :16], **IMG_TOL)
+    err_j, ok_j = max_violation(rows_k[:, 16:25], rows_p[:, 16:25], **GRAD_TOL)
+    exact = torch.equal(rows_k[:, 25:], rows_p[:, 25:])
+    # each input read once (xyz, scales, rotation, opacity, 12 B of the SH
+    # row; q and T), the [n, 32] rows written once. A row's ~350 f32
+    # operations take under a fifth of its bytes' time: the bound is bytes.
+    b, by = bound_ms(n * (12 + 12 + 16 + 4 + 12 + 128) + 28, 0)
+    print(f"[{tag}] kernel 4 (pose rows) on {n} rows{' (isotropic)' if iso else ''}: columns "
+          f"0-15 max abs err {err_i:.3e} "
+          f"({'ok' if ok_i else 'FAIL'}), Jacobian 16-24 max abs err {err_j:.3e} (max |J| "
+          f"{float(rows_p[:, 16:25].abs().max()):.3e}) ({'ok' if ok_j else 'FAIL'}), 25-31 "
+          f"{'equal' if exact else 'DIFFER'}; kernel {tk:.4f} ms, plain {tp:.1f} ms, bound "
+          f"{b:.4f} ms ({by})", flush=True)
+    if not (ok_i and ok_j and exact):
+        fail(f"{tag}: kernel 4 disagrees with its plain version")
+    return dict(name="pose_rows", route="cuda", source="mm3dgs_slam_torch/csrc/pose_rows.cu",
+                replaces=None, rows=n, max_abs_err=max(err_i, err_j), ms=tk, plain_ms=tp,
+                bound_ms=b, bound_by=by, library_ms=None)
+
+
+def add_pose_rows_entry(rows, scene, key, tag):
+    """check_pose_rows on `scene`, kept in the kernels line's pose_rows row
+    under `key`."""
+    r = check_pose_rows(scene, tag=tag)
+    next(k for k in rows if k["name"] == "pose_rows")[key] = {
+        f: r[f] for f in SIZE_KEYS if f in r}
 
 
 def check_bench_bins(device, nc=3, tag="check bench bins"):
@@ -1363,9 +1418,9 @@ def print_ceiling(tag, ceil, cfg, slam):
 def run_synthetic_yml(run, kernels, tmp, device, rows, rebins, main_cfg, ba_cfg):
     """Phase 16: configs/synthetic.yml, the repo's own config (120x160, 8
     frames, 40 / 60 iterations, tpu.rebin_every 1, NIQE keyframes, 800
-    Gaussians), on the JAX package's scene of it. First the four launches
+    Gaussians), on the JAX package's scene of it. First the five launches
     against their plain versions on its frames 0 and 1 (kernel 1 at nc 3, 5
-    and 6, kernel 2's rows and reduce at nc 3, kernel 3 at nc 5), their
+    and 6, kernel 2's rows and reduce at nc 3, kernel 3 at nc 5, kernel 4), their
     numbers added to the kernels line's rows as synthetic_120x160; then the
     whole config through drive, with mapping.do_BA off and then on, each
     ATE < 0.03 m and PSNR > 17 dB. Prints both ATEs, their ratio beside
@@ -1380,10 +1435,12 @@ def run_synthetic_yml(run, kernels, tmp, device, rows, rebins, main_cfg, ba_cfg)
     cfg = load_config(str(ROOT / "configs" / "synthetic.yml"))
     cfg["outputdir"] = str(Path(tmp) / "out_synthetic")
     f0, f1, cam = synthetic_frames(cfg, device, scene)
-    srows = check_kernels(check_scene((f0, f1), RenderSettings(cam=cam), device),
-                          fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5,), tag="check 120x160")
+    sscene = check_scene((f0, f1), RenderSettings(cam=cam), device)
+    srows = check_kernels(sscene, fwd_ncs=(3, 5, 6), bwd_nc=3, pose_ncs=(5,),
+                          tag="check 120x160")
     add_size_entries(rows, srows, "synthetic_120x160", {
         "composite_fwd": 5, "composite_bwd": 3, "slot_reduce": 3, "composite_pose_bwd": 5})
+    add_pose_rows_entry(rows, sscene, "synthetic_120x160", "check 120x160")
     bcfg = copy.deepcopy(cfg)
     bcfg["outputdir"] = str(Path(tmp) / "out_synthetic_ba")
     bcfg["mapping"]["do_BA"] = True
@@ -1536,6 +1593,7 @@ def main() -> int:
     for k in rows:
         k["windowed_640x480"] = windowed[k["name"]]
     print(f"[check 3d] {time.perf_counter() - t0:.1f} s", flush=True)
+    rows.append(check_pose_rows(scene))
     del scene
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1599,18 +1657,24 @@ def main() -> int:
         # phase 3b: the kernels at 640x330, at the widths of the UT-MM path
         u0, u1, ucam = dataset_frames(ucfg)
         urs = RenderSettings(cam=ucam, force_isotropic=ucfg["pipeline"]["force_isotropic"])
-        urows = check_kernels(check_scene((u0, u1), urs, device), fwd_ncs=(4, 5), bwd_nc=4,
-                              pose_ncs=(5,), tag="check 640x330")
+        uscene = check_scene((u0, u1), urs, device)
+        urows = check_kernels(uscene, fwd_ncs=(4, 5), bwd_nc=4, pose_ncs=(5,),
+                              tag="check 640x330")
         add_size_entries(rows, urows, "utmm_640x330", {
             "composite_fwd": 5, "composite_bwd": 4, "slot_reduce": 4, "composite_pose_bwd": 5})
+        add_pose_rows_entry(rows, uscene, "utmm_640x330", "check 640x330")
+        del uscene
 
         # phase 3c: the kernels at 600x340, with its partial tile column
         t0 = time.perf_counter()
         r0, r1, rcam = dataset_frames(rcfg)
-        rrows = check_kernels(check_scene((r0, r1), RenderSettings(cam=rcam), device),
-                              fwd_ncs=(3, 4, 5), bwd_nc=4, pose_ncs=(5,), tag="check 600x340")
+        rscene = check_scene((r0, r1), RenderSettings(cam=rcam), device)
+        rrows = check_kernels(rscene, fwd_ncs=(3, 4, 5), bwd_nc=4, pose_ncs=(5,),
+                              tag="check 600x340")
         add_size_entries(rows, rrows, "replica_600x340", {
             "composite_fwd": 5, "composite_bwd": 4, "slot_reduce": 4, "composite_pose_bwd": 5})
+        add_pose_rows_entry(rows, rscene, "replica_600x340", "check 600x340")
+        del rscene
         print(f"[check 600x340] {time.perf_counter() - t0:.1f} s", flush=True)
 
         # phase 4: the main path, through run_golden on the JAX package's
@@ -1706,7 +1770,8 @@ def main() -> int:
     for k in rows:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
-        k["launches_windowed_by_path"] = {p: c[k["name"]] for p, c in mesh_paths.items()}
+        k["launches_windowed_by_path"] = {p: c[k["name"]] for p, c in mesh_paths.items()
+                                          if k["name"] in c}
         if k["name"] == "composite_pose_bwd":
             k["nc6"]["launches_splatam"] = s_by_nc[k["name"]].get(6, 0)
         if k["name"] == "composite_bwd":

@@ -1,20 +1,22 @@
-"""The three CUDA compositing kernels: build, ctypes binding, launch counts
-and the wrappers the render path calls. Kernel 2 (`composite_bwd`) runs as
-two launches from one source, its per-slot rows (`composite_bwd_rows`,
-counted as `composite_bwd`) and the slot reduce (`slot_reduce`, counted on
-its own).
+"""The CUDA kernels: build, ctypes binding, launch counts and the wrappers
+the render path calls. Kernels 1-3 composite tiles; kernel 2
+(`composite_bwd`) runs as two launches from one source, its per-slot rows
+(`composite_bwd_rows`, counted as `composite_bwd`) and the slot reduce
+(`slot_reduce`, counted on its own). Kernel 4 (`pose_rows`) builds the rows
+kernels 1 and 3 read in tracking.
 
 Each source under `csrc/` is compiled at first use by its own `nvcc` (all
 started together) into a shared library with a plain C interface under
 `build/` at the repository root, named by a hash of the sources and flags,
 and loaded with ctypes. A wrapper takes the kernel's plain PyTorch version
-(`ops/composite.py`) only for tensors on the CPU; for CUDA tensors it checks
-device, dtype, shape and contiguity, allocates the outputs, launches the
-kernel on the current stream, raises if the launch was refused, and adds one
-to that kernel's launch count, in total and at its width nc. There is no
+(`ops/composite.py`; kernel 4's `projection.pose_rows_plain`) only for
+tensors on the CPU; for CUDA tensors it checks device, dtype, shape and
+contiguity, allocates the outputs, launches the kernel on the current
+stream, raises if the launch was refused, and adds one to that kernel's
+launch count, in total and, for kernels 1-3, at their width nc. There is no
 fallback.
 
-All three kernels walk a tile with the same per-warp cull
+The three compositing kernels walk a tile with the same per-warp cull
 (`csrc/composite_common.cuh`) and take an optional `work` tensor, int64 [2]
 on the card, to which they add the (tile, pair, warp box)s the cull keeps
 (`work[0]`, equal to `composite_fwd_plain(count_work=True)`'s `warp_pairs`
@@ -22,19 +24,21 @@ whatever nc) and the (warp, pair)s the warps walk (`work[1]`, fewer where a
 warp leaves a batch once all its pixels have stopped). The main path passes
 none.
 
-Every wrapper also takes a tile window (`tile_lo`, `n_local`, the
+Every compositing wrapper also takes a tile window (`tile_lo`, `n_local`, the
 tile-sharded render's: parallel/tile_sharded.py): the bins and the per-tile
 outputs then have n_local rows for the global tiles from tile_lo on, and the
 launch is also counted in `launches_windowed`. The whole grid (tile_lo 0,
 n_local n_tiles) is the default.
 
-Each of the four wrappers the render path calls is a `kernel.<name>` span
-(spans.py) with its width nc and its pairs and tiles: a launch's checks,
-allocations and launch on the host, on the CPU its plain version.
+Each of the five wrappers the render path calls is a `kernel.<name>` span
+(spans.py) with its width nc and its pairs and tiles (`pose_rows`: its rows
+n): a launch's checks, allocations and launch on the host, on the CPU its
+plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -45,7 +49,8 @@ import torch
 from .. import spans
 from . import composite as plain
 from .binning import SlotTable, build_slots
-from .camera import PIX, Camera
+from .camera import PIX, Camera, projection_matrix
+from .projection import pose_rows_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -88,16 +93,17 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args, nc: int, windowed: bool):
-        """Calls the entry point with `args` and counts the launch at width
-        `nc`, and as windowed where it walks (or reduces) a tile window
-        that is not the whole grid."""
+    def launch(self, *args, nc: int | None = None, windowed: bool = False):
+        """Calls the entry point with `args` and counts the launch, at width
+        `nc` where the kernel has one, and as windowed where it walks (or
+        reduces) a tile window that is not the whole grid."""
         err = self.bind()(*args)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} was not launched: "
                                f"cudaError {err}")
         self.launches += 1
-        self.launches_by_nc[nc] = self.launches_by_nc.get(nc, 0) + 1
+        if nc is not None:
+            self.launches_by_nc[nc] = self.launches_by_nc.get(nc, 0) + 1
         if windowed:
             self.launches_windowed += 1
 
@@ -118,7 +124,12 @@ REDUCE = Kernel("slot_reduce", "composite_bwd.cu", "mm3dgs_slot_reduce",
 POSE_BWD = Kernel("composite_pose_bwd", "composite_pose_bwd.cu",
                   "mm3dgs_composite_pose_bwd",
                   _COMMON + [_P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P])
-KERNELS = (FWD, BWD, REDUCE, POSE_BWD)
+# xyz, scales, isotropic, rotations, opacity, shs, sh row length, q, T, n,
+# the ten camera constants (_pose_rows_camera), out, stream
+POSE_ROWS = Kernel("pose_rows", "pose_rows.cu", "mm3dgs_pose_rows",
+                   [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I] + [_F] * 10 + [_P, _P])
+COMPOSITING = (FWD, BWD, REDUCE, POSE_BWD)   # the kernels with a width and a tile window
+KERNELS = COMPOSITING + (POSE_ROWS,)
 
 
 def _nvcc() -> str:
@@ -164,11 +175,11 @@ def launch_counts() -> dict[str, int]:
 
 
 def launch_counts_by_nc() -> dict[str, dict[int, int]]:
-    return {k.name: dict(sorted(k.launches_by_nc.items())) for k in KERNELS}
+    return {k.name: dict(sorted(k.launches_by_nc.items())) for k in COMPOSITING}
 
 
 def launch_counts_windowed() -> dict[str, int]:
-    return {k.name: k.launches_windowed for k in KERNELS}
+    return {k.name: k.launches_windowed for k in COMPOSITING}
 
 
 def _stream() -> int:
@@ -362,3 +373,39 @@ def composite_pose_bwd(packed32, pair_gauss, tile_start, tile_count, acc, tfin,
                         cam.cy - 0.5, psum.data_ptr(), work_ptr, _stream(),
                         nc=nc, windowed=_windowed(cam, tile_lo, n_local))
         return psum
+
+
+def pose_rows(g, q, T, cam: Camera, isotropic: bool):
+    """Kernel 4: tracking's rows [N, 32] at the pose (q [4], T [3]) for the
+    map `g` (ActivatedGaussians): see projection.pose_rows_plain, the plain
+    version, and csrc/pose_rows.cu. `isotropic` reads scale column 0 for
+    all three. `g.alive` is not read: it sets only the projection's radius,
+    which the rows do not hold."""
+    n = g.xyz.shape[0]
+    with spans.span("kernel.pose_rows", n=n):
+        if not g.xyz.is_cuda:
+            return pose_rows_plain(g, q, T, cam, isotropic)
+        dev = g.xyz.device
+        if g.shs.dim() != 3 or g.shs.shape[0] != n or g.shs.shape[2] != 3:
+            raise ValueError(f"shs: expected [{n}, K, 3], got {tuple(g.shs.shape)}")
+        for name, t, shape in (("xyz", g.xyz, (n, 3)), ("scales", g.scales, (n, 3)),
+                               ("rotations", g.rotations, (n, 4)), ("opacity", g.opacity, (n,)),
+                               ("shs", g.shs, None), ("q", q, (4,)), ("T", T, (3,))):
+            _check(name, t, torch.float32, shape)
+            if t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, xyz on {dev}")
+        out = torch.empty((n, 32), dtype=torch.float32, device=dev)
+        POSE_ROWS.launch(g.xyz.data_ptr(), g.scales.data_ptr(), int(isotropic),
+                         g.rotations.data_ptr(), g.opacity.data_ptr(), g.shs.data_ptr(),
+                         g.shs.shape[1] * 3, q.data_ptr(), T.data_ptr(), n,
+                         *_pose_rows_camera(cam), out.data_ptr(), _stream())
+        return out
+
+
+@functools.lru_cache(maxsize=16)
+def _pose_rows_camera(cam: Camera) -> tuple[float, ...]:
+    """Kernel 4's camera constants: fx, fy, the clamp limits 1.3 tanfov,
+    the projection matrix's P00, P02, P11, P12, width, height."""
+    P = projection_matrix(cam).tolist()
+    return (cam.fx, cam.fy, 1.3 * cam.tanfovx, 1.3 * cam.tanfovy, P[0][0], P[0][2],
+            P[1][1], P[1][2], float(cam.width), float(cam.height))

@@ -21,6 +21,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from .camera import Camera, projection_matrix
+from .pose import pose_to_w2c
 from .sh import eval_sh
 
 _IDENTITY9 = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
@@ -40,6 +41,17 @@ class ProjectedGaussians(NamedTuple):
     opacity: torch.Tensor   # [N] post-sigmoid opacity
     feat: torch.Tensor      # [N, 6] composited features
     packed: torch.Tensor    # [N, 16]
+
+
+def means_cam_soa(xyz, camera_pose):
+    """Camera-frame means for a 7-vector w2c pose (renderer.py:142-153)."""
+    w2c = pose_to_w2c(camera_pose)
+    R, t = w2c[:3, :3], w2c[:3, 3]
+    mx, my, mz = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    return torch.stack([
+        mx * R[0, 0] + my * R[0, 1] + mz * R[0, 2] + t[0],
+        mx * R[1, 0] + my * R[1, 1] + mz * R[1, 2] + t[1],
+        mx * R[2, 0] + my * R[2, 1] + mz * R[2, 2] + t[2]], dim=-1)
 
 
 def _rotmat_rows(q: torch.Tensor) -> list[torch.Tensor]:
@@ -179,3 +191,20 @@ def project_gaussians(means3d, scales, rotations, opacities, shs, alive,
     return ProjectedGaussians(
         xy=packed[:, 0:2], depth=tz, conic=packed[:, 2:5], radius=radius,
         opacity=packed[:, 5], feat=packed[:, 6:12], packed=packed)
+
+
+def pose_rows_plain(g, q, T, cam: Camera, isotropic: bool) -> torch.Tensor:
+    """The rows kernels 1 and 3 read in tracking, [N, 32], at the pose
+    (q, T), in transform_means_python mode with sh_degree 0: the packed row
+    of `project_gaussians` at w2c = I for the camera-frame means (columns
+    0-15), then `conic_pose_jacobian_rows` (16-31). `g` is the map's
+    ActivatedGaussians (ops/render.py); `isotropic` tiles scale column 0
+    (render.effective_scales). The plain version of kernel 4
+    (kernels.pose_rows), which is held to it."""
+    means_cam = means_cam_soa(g.xyz, torch.cat([q, T]))
+    scales = g.scales[:, :1].expand(-1, 3) if isotropic else g.scales
+    jac_rows = conic_pose_jacobian_rows(means_cam, scales, g.rotations, g.xyz, cam)
+    dev = g.xyz.device
+    proj = project_gaussians(means_cam, scales, g.rotations, g.opacity, g.shs, g.alive,
+                             torch.eye(4, device=dev), cam, 0, torch.zeros(3, device=dev))
+    return torch.cat([proj.packed, jac_rows], dim=1).contiguous()

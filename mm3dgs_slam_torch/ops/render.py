@@ -28,7 +28,7 @@ from . import kernels
 from .binning import SlotTable, TileBins, build_bins
 from .camera import PIX, TILE, Camera
 from .pose import pose_to_w2c, quat_to_rotmat
-from .projection import ProjectedGaussians, conic_pose_jacobian_rows, project_gaussians
+from .projection import ProjectedGaussians, means_cam_soa, project_gaussians
 
 
 class RenderSettings(NamedTuple):
@@ -55,23 +55,15 @@ class ActivatedGaussians(NamedTuple):
     alive: torch.Tensor      # [N] bool
 
 
-def effective_scales(scales, rs: RenderSettings):
+def isotropic(rs: RenderSettings) -> bool:
     """force_isotropic tiles scale column 0 (renderer.py:167-168), unless
     compute_cov3D_python skips that branch."""
-    if rs.force_isotropic and not rs.compute_cov3d_python:
-        return scales[:, :1].expand(-1, 3)
-    return scales
+    return rs.force_isotropic and not rs.compute_cov3d_python
 
 
-def means_cam_soa(xyz, camera_pose):
-    """Camera-frame means for a 7-vector w2c pose (renderer.py:142-153)."""
-    w2c = pose_to_w2c(camera_pose)
-    R, t = w2c[:3, :3], w2c[:3, 3]
-    mx, my, mz = xyz[:, 0], xyz[:, 1], xyz[:, 2]
-    return torch.stack([
-        mx * R[0, 0] + my * R[0, 1] + mz * R[0, 2] + t[0],
-        mx * R[1, 0] + my * R[1, 1] + mz * R[1, 2] + t[1],
-        mx * R[2, 0] + my * R[2, 1] + mz * R[2, 2] + t[2]], dim=-1)
+def effective_scales(scales, rs: RenderSettings):
+    """The scales the projection sees (see `isotropic`)."""
+    return scales[:, :1].expand(-1, 3) if isotropic(rs) else scales
 
 
 def project_for_pose(g: ActivatedGaussians, camera_pose, rs: RenderSettings) -> ProjectedGaussians:
@@ -222,19 +214,14 @@ def pose_grads_from_partials(psum, q, reduce=None):
 @torch.no_grad()
 def pack_pose_rows(g: ActivatedGaussians, q, T, rs: RenderSettings):
     """The rows kernels 1 and 3 read in tracking: packed [N, 16] at the pose
-    (q, T) with the pose-Jacobian columns 16-31 appended, [N, 32]."""
+    (q, T) with the pose-Jacobian columns 16-31 appended, [N, 32]; kernel 4
+    (`kernels.pose_rows`) on the card, `projection.pose_rows_plain` on the
+    CPU."""
     if not (rs.transform_means_python and rs.sh_degree == 0):
         raise ValueError("fused pose gradients require transform_means_python "
                          "and sh_degree 0")
     g = ActivatedGaussians(*(t.detach() for t in g))
-    means_cam = means_cam_soa(g.xyz, torch.cat([q.detach(), T.detach()]))
-    scales = effective_scales(g.scales, rs)
-    jac_rows = conic_pose_jacobian_rows(means_cam, scales, g.rotations, g.xyz, rs.cam)
-    dev = g.xyz.device
-    proj = project_gaussians(means_cam, scales, g.rotations, g.opacity, g.shs, g.alive,
-                             torch.eye(4, device=dev), rs.cam, rs.sh_degree,
-                             torch.zeros(3, device=dev))
-    return torch.cat([proj.packed, jac_rows], dim=1).contiguous()
+    return kernels.pose_rows(g, q.detach(), T.detach(), rs.cam, isotropic(rs))
 
 
 def tiles_pose(q, T, packed32, bins: TileBins, rs: RenderSettings, nc: int,

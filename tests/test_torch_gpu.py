@@ -1,6 +1,9 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card,
-on a projected 3D scene and on the hard screen-space scenes of
-test_torch_cull.py (long anisotropic splats, saturating layers).
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+compositing kernels 1-3 on a projected 3D scene and on the hard
+screen-space scenes of test_torch_cull.py (long anisotropic splats,
+saturating layers), kernel 4 (the tracking rows) on that 3D scene and on
+its edge rows (torch_scenes.pose_edge_scene, which test_torch_projection.py
+holds against the JAX package on the CPU), and in a tracking call.
 
 Marked `gpu`; each test decides inside itself whether a card is present and
 skips without one (collection is the same on every xdist worker). Run on a
@@ -14,7 +17,7 @@ from mm3dgs_slam_torch.ops import composite as plain
 from mm3dgs_slam_torch.ops import kernels
 from mm3dgs_slam_torch.ops.binning import build_bins, build_slots
 from mm3dgs_slam_torch.ops.camera import Camera
-from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
+from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows, pose_rows_plain
 from mm3dgs_slam_torch.ops.render import (ActivatedGaussians, RenderSettings, means_cam_soa,
                                           pose_grads_from_partials, project_for_pose)
 from mm3dgs_slam_torch.ops.sh import rgb_to_sh
@@ -22,6 +25,7 @@ from mm3dgs_slam_torch.ops.tolerances import (BA_ATOL, GRAD_TOL, IMG_TOL, PARTIA
                                               POSE_TOL)
 
 from test_torch_cull import screen_scene
+from torch_scenes import pose_edge_scene
 
 pytestmark = pytest.mark.gpu
 POSE = [0.999, 0.02, -0.01, 0.005, 0.01, -0.02, 0.03]
@@ -589,3 +593,99 @@ def test_bench_kernel_check_passes():
 
     out = bench.kernel_check(_cuda())
     assert out["opacity_grad_max"] > 0 and max(out.values()) < 1e3
+
+
+@pytest.mark.parametrize("scene,iso", [("projected", False), ("edge", False), ("edge", True)])
+def test_pose_rows_kernel_matches_plain(scene, iso):
+    """Kernel 4 against its plain version: columns 0-15 within IMG_TOL, the
+    conic Jacobian 16-24 within GRAD_TOL, the world mean and the zeros
+    25-31 equal; on `_scene` and on the edge rows (behind z = 0.2, past
+    both clamp limits, dead rows), the latter also under force_isotropic.
+    One launch."""
+    dev = _cuda()
+    if scene == "projected":
+        g, rs, pose, _, _ = _scene(dev)
+        cam = rs.cam
+    else:
+        g, cam = pose_edge_scene(dev)
+        pose = torch.as_tensor(POSE, device=dev)
+    q, T = pose[:4], pose[4:]
+    before = kernels.POSE_ROWS.launches
+    rows = kernels.pose_rows(g, q, T, cam, iso)
+    torch.cuda.synchronize()
+    assert kernels.POSE_ROWS.launches == before + 1
+    want = pose_rows_plain(g, q, T, cam, iso)
+    torch.testing.assert_close(rows[:, :16], want[:, :16], **IMG_TOL)
+    torch.testing.assert_close(rows[:, 16:25], want[:, 16:25], **GRAD_TOL)
+    assert torch.equal(rows[:, 25:], want[:, 25:])
+    assert float(want[:, 16:25].abs().max()) > 0.1
+    if scene == "edge":
+        mz = want[:, 9]
+        assert bool((mz <= 0.2).any()) and bool((~g.alive).any())
+
+
+def test_track_frame_runs_pose_rows_once_per_iteration(monkeypatch):
+    """One tracking call on the card (the seeded 640x480 frame, from a pose
+    2 cm and about a degree off the one its target was rendered at) launches
+    kernel 4 once an iteration and never runs the plain rows; its losses
+    and steps match the same call through the plain rows within POSE_TOL."""
+    from mm3dgs_slam_torch.ops import render as render_mod
+    from mm3dgs_slam_torch.slam import tracker
+
+    dev = _cuda()
+    g, rs, pose, _, _ = _seeded_scene(dev)
+    with torch.no_grad():
+        out = render_mod.render(g, torch.as_tensor([1.0, 0, 0, 0, 0, 0, 0], device=dev), rs)
+    color, depth = out["render"], out["depth"][0]
+    ts = tracker.TrackSettings(rs=rs, iters=3, rebin_every=2)
+    real_loss = tracker.tracking_loss_tiles
+
+    def run():
+        seen = []
+
+        def loss_fn(g_, q, T, *args, **kw):
+            loss = real_loss(g_, q, T, *args, **kw)
+            seen.append((torch.cat([q.detach(), T.detach()]), loss.detach()))
+            return loss
+        monkeypatch.setattr(tracker, "tracking_loss_tiles", loss_fn)
+        final, _ = tracker.track_frame(g, pose, color, depth, torch.zeros_like(depth), ts)
+        torch.cuda.synchronize()
+        return torch.stack([p for p, _ in seen[1:]] + [final]), torch.stack([x for _, x in seen])
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain rows ran on the card")
+
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "pose_rows_plain", no_plain)
+        before = kernels.POSE_ROWS.launches
+        steps_k, losses_k = run()
+        assert kernels.POSE_ROWS.launches == before + ts.iters
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "pose_rows", lambda g_, q, T, cam, iso: pose_rows_plain(g_, q, T, cam,
+                                                                                   iso))
+        before = kernels.POSE_ROWS.launches
+        steps_p, losses_p = run()
+        assert kernels.POSE_ROWS.launches == before
+    print(f"[pose_rows] losses kernel {losses_k.tolist()} plain {losses_p.tolist()}; "
+          f"steps differ by {float((steps_k - steps_p).abs().max()):.3g}")
+    torch.testing.assert_close(losses_k, losses_p, **POSE_TOL)
+    torch.testing.assert_close(steps_k, steps_p, **POSE_TOL)
+    assert float((steps_k[-1] - pose).abs().max()) > 1e-3
+
+
+def test_pose_rows_wrapper_rejects_bad_inputs():
+    dev = _cuda()
+    g, rs, pose, _, _ = _scene(dev)
+    q, T = pose[:4], pose[4:]
+    bad = {"dtype": g._replace(xyz=g.xyz.double()),
+           "device": g._replace(opacity=g.opacity.cpu()),
+           "shape": g._replace(rotations=g.rotations[:, :3].contiguous()),
+           "shs shape": g._replace(shs=g.shs[:, 0]),
+           "contiguity": g._replace(scales=g.scales.t().contiguous().t())}
+    for gb in bad.values():
+        with pytest.raises(ValueError):
+            kernels.pose_rows(gb, q, T, rs.cam, False)
+    with pytest.raises(ValueError):
+        kernels.pose_rows(g, q.cpu(), T, rs.cam, False)
+    with pytest.raises(ValueError):
+        kernels.pose_rows(g, pose[:3], T, rs.cam, False)

@@ -1,6 +1,7 @@
 """mm3dgs_slam_torch projection, oracle and binning held against the JAX
 package on the CPU, on the same random scenes (tests/utils.random_scene,
-converted to numpy)."""
+converted to numpy), and kernel 4's plain version (the tracking rows) on
+the edge rows of tests/torch_scenes.py's `pose_edge_scene`."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,18 +9,26 @@ import pytest
 import torch
 
 from mm3dgs_slam_tpu.ops.binning import build_bins as jbuild_bins
+from mm3dgs_slam_tpu.ops.camera import Camera as JCamera
 from mm3dgs_slam_tpu.ops.oracle import composite_oracle as joracle
 from mm3dgs_slam_tpu.ops.projection import conic_pose_jacobian_rows as jjac
+from mm3dgs_slam_tpu.ops.render import ActivatedGaussians as JActivated
 from mm3dgs_slam_tpu.ops.render import RenderSettings as JRS
 from mm3dgs_slam_tpu.ops.render import background as jbackground
+from mm3dgs_slam_tpu.ops.render import effective_scales as jeffective_scales
+from mm3dgs_slam_tpu.ops.render import means_cam_soa as jmeans_cam_soa
 from mm3dgs_slam_tpu.ops.render import project_for_pose as jproject
 
+from mm3dgs_slam_torch.ops import kernels
 from mm3dgs_slam_torch.ops.binning import build_bins
 from mm3dgs_slam_torch.ops.camera import Camera
 from mm3dgs_slam_torch.ops.oracle import composite_oracle
-from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows
-from mm3dgs_slam_torch.ops.render import ActivatedGaussians, RenderSettings, background, project_for_pose
+from mm3dgs_slam_torch.ops.projection import conic_pose_jacobian_rows, project_gaussians
+from mm3dgs_slam_torch.ops.render import (ActivatedGaussians, RenderSettings, background,
+                                          effective_scales, means_cam_soa, pack_pose_rows,
+                                          project_for_pose)
 
+from torch_scenes import pose_edge_scene
 from utils import random_scene, small_camera
 
 torch.set_num_threads(1)
@@ -79,6 +88,45 @@ def test_conic_pose_jacobian_rows_match_jax():
                                   torch.as_tensor(np.asarray(g.xyz)), tcam(cam))
     j = np.asarray(j)
     np.testing.assert_allclose(tj.numpy(), j, rtol=1e-4, atol=1e-4 * np.abs(j).max())
+
+
+@pytest.mark.parametrize("iso", [False, True])
+def test_pose_rows_cpu_path_is_the_plain_chain_and_matches_jax(iso):
+    """`kernels.pose_rows` on the CPU (kernel 4's plain version) on edge rows
+    (behind z = 0.2, past both clamp limits, dead rows): no launch counted,
+    `pack_pose_rows`'s rows, bit for bit the chain `pack_pose_rows` ran
+    before kernel 4 (means_cam_soa, effective_scales, project_gaussians at
+    w2c = I, conic_pose_jacobian_rows), and the JAX package's packed rows
+    and conic_pose_jacobian_rows within test_conic_pose_jacobian_rows_match_jax's
+    tolerances."""
+    g, cam = pose_edge_scene("cpu", n=600)
+    rs = RenderSettings(cam=cam, force_isotropic=iso)
+    q, T = torch.as_tensor(POSE[:4]), torch.as_tensor(POSE[4:])
+    before = kernels.launch_counts()
+    rows = kernels.pose_rows(g, q, T, cam, iso)
+    assert kernels.launch_counts() == before
+    assert torch.equal(rows, pack_pose_rows(g, q, T, rs))
+    means_cam = means_cam_soa(g.xyz, torch.cat([q, T]))
+    scales = effective_scales(g.scales, rs)
+    proj = project_gaussians(means_cam, scales, g.rotations, g.opacity, g.shs, g.alive,
+                             torch.eye(4), cam, 0, torch.zeros(3))
+    jac = conic_pose_jacobian_rows(means_cam, scales, g.rotations, g.xyz, cam)
+    assert torch.equal(rows, torch.cat([proj.packed, jac], 1))
+
+    mz = means_cam[:, 2]
+    ux, uy = means_cam[:, 0] / mz, means_cam[:, 1] / mz
+    assert bool((mz <= 0.2).any()) and bool((~g.alive).any())
+    for u, lim in ((ux, cam.tanfovx), (uy, cam.tanfovy)):
+        out = (mz > 0.2) & (u.abs() > 1.3 * lim)
+        assert bool((out & (u > 0)).any()) and bool((out & (u < 0)).any())
+    jcam = JCamera(*cam)
+    jg = JActivated(*(jnp.asarray(t.numpy()) for t in g))
+    jrs = JRS(cam=jcam, force_isotropic=iso)
+    jp = jproject(jg, jnp.asarray(POSE), jrs)
+    np.testing.assert_allclose(rows[:, :16].numpy(), np.asarray(jp.packed), rtol=1e-5, atol=1e-4)
+    jj = np.asarray(jjac(jmeans_cam_soa(jg.xyz, jnp.asarray(POSE)),
+                         jeffective_scales(jg.scales, jrs), jg.rotations, jg.xyz, jcam))
+    np.testing.assert_allclose(rows[:, 16:].numpy(), jj, rtol=1e-4, atol=1e-4 * np.abs(jj).max())
 
 
 @pytest.mark.parametrize("white", [False, True])

@@ -227,7 +227,8 @@ LAST = 4
 KERNEL_SYMBOL = {"kernel.composite_fwd": "composite_fwd_kernel",
                  "kernel.composite_bwd_rows": "composite_bwd_rows_kernel",
                  "kernel.slot_reduce": "slot_reduce_kernel",
-                 "kernel.composite_pose_bwd": "composite_pose_bwd_kernel"}
+                 "kernel.composite_pose_bwd": "composite_pose_bwd_kernel",
+                 "kernel.pose_rows": "pose_rows_kernel"}
 
 
 def _orbit_run(traced: bool) -> dict:
