@@ -47,6 +47,22 @@ The numbers compared (each against its own limit, limits/<cell>.json):
   map_step_gap                    the same for the leaves' change over the two
                                   steps
 
+and, only where the configuration sets mapping.do_BA (bundle adjustment:
+the window's poses move with the map, a rebin every iteration, the map step
+confined to a mask of rows), in which case the reference follows the pose
+Adam and the program's mask in the three numbers above:
+
+  ba_mask_gap                     the share of rows where the program's mask
+                                  of the rows the map step moves and the
+                                  reference's differ (rows seen from at
+                                  least two window poses, or appended this
+                                  frame); infinite where their counts differ
+  map_pose_step_gap               the window's poses' change over the first
+                                  three iterations (three pose Adam steps,
+                                  the prune's included): | |dq| - |dq_ref| |
+                                  / |dq_ref| and the same for T; the worst
+                                  of the slots that the reference moved
+
 The tracked pose after all its iterations is printed beside them, not
 judged: its largest gap to the reference's (pose_gap) and the relative gap
 of the reference's loss at the two poses (pose_loss_gap). Where the loss is
@@ -66,17 +82,25 @@ from . import reference as ref
 from . import scene as sc
 
 NUMBERS = ("frame_rgb_gap", "frame_depth_gap", "seed_xyz_gap", "seed_pose_gap",
-           "track_loss_gap", "track_step_gap", "map_loss_gap", "map_grad_gap", "map_step_gap")
+           "track_loss_gap", "track_step_gap", "map_loss_gap", "map_grad_gap", "map_step_gap",
+           "ba_mask_gap", "map_pose_step_gap")
+BA_NUMBERS = ("ba_mask_gap", "map_pose_step_gap")
 
 
 def _dyn_model(cfg: dict):
     return (cfg["tracking"].get("dynamics_model") or "").lower() or None
 
 
+def _do_ba(cfg: dict) -> bool:
+    return bool(cfg["mapping"].get("do_BA", False))
+
+
 def numbers_for(cfg: dict) -> tuple:
     """The numbers a cell compares: all, less seed_pose_gap where the motion
-    model is the IMU's, which the reference does not have."""
-    return tuple(k for k in NUMBERS if k != "seed_pose_gap" or _dyn_model(cfg) != "imu")
+    model is the IMU's, which the reference does not have, and less the
+    bundle adjustment's numbers where mapping.do_BA is not set."""
+    return tuple(k for k in NUMBERS if (k != "seed_pose_gap" or _dyn_model(cfg) != "imu")
+                 and (k not in BA_NUMBERS or _do_ba(cfg)))
 
 
 def track_held(cfg: dict) -> list:
@@ -123,7 +147,8 @@ def map_spec(cfg: dict) -> ref.MapSpec:
         densify_from_iter=int(mp["densify_from_iter"]),
         densify_until_iter=int(mp["densify_until_iter"]),
         rebin_every=int(cfg.get("tpu", {}).get("map_rebin_every", 1)), lrs=lrs,
-        force_isotropic=_isotropic(cfg))
+        force_isotropic=_isotropic(cfg), do_BA=_do_ba(cfg),
+        cam_q_lr=float(mp.get("cam_q_lr", 0.0)), cam_t_lr=float(mp.get("cam_t_lr", 0.0)))
 
 
 def _gap(a, b) -> float:
@@ -225,14 +250,49 @@ def seed_pose_gap(cap: dict, cfg: dict, dtype) -> float:
     return _gap(w_prog[:3], w_ref[:3])
 
 
-def map_steps(cap: dict, cfg: dict, cam: ref.Cam, device, dtype) -> dict:
+def map_steps(cap: dict, cfg: dict, cam: ref.Cam, device, dtype, row_mask=None) -> dict:
     m = cap["map_in"]
     on = lambda d: {f: t.to(device) for f, t in d.items()}  # noqa: E731
     return ref.map_iterations(on(m["leaves"]), on(m["mu"]), on(m["nu"]), int(m["step"]),
                               m["max_radii"].to(device), float(m["extent"]),
                               m["kf_colors"].to(device), m["kf_depths"].to(device),
                               m["kf_poses"].to(device), m["schedule"], 3, cam,
-                              map_spec(cfg), dtype)
+                              map_spec(cfg), dtype,
+                              row_mask=None if row_mask is None else row_mask.to(device))
+
+
+def ba_mask_ref(cap: dict, cfg: dict, cam: ref.Cam, device, dtype) -> torch.Tensor:
+    """The reference's mask of the rows bundle adjustment's map step moves,
+    from the map, the window's poses and the rows appended this frame as
+    the mapping loop received them."""
+    m = cap["map_in"]
+    return ref.ba_mask({f: t.to(device) for f, t in m["leaves"].items()},
+                       m["kf_poses"].to(device), int(m["n_added"]), cam,
+                       map_spec(cfg).force_isotropic, dtype).cpu()
+
+
+def _mask_gap(mask, mask_ref) -> float:
+    """Share of rows where two masks differ; infinite where their counts do."""
+    if mask is None or mask.shape != mask_ref.shape:
+        return float("inf")
+    return float((mask != mask_ref).sum()) / max(mask_ref.numel(), 1)
+
+
+def _pose_step_gap(poses, poses_ref, start) -> float:
+    """Worst, over the window's slots that the reference moved and over q
+    and T, of | |d| - |d_ref| | / |d_ref|, d the poses' change over the
+    first three iterations."""
+    if poses is None or len(poses) < 3 or poses[2].shape != poses_ref[2].shape:
+        return float("inf")
+    d, d_ref = poses[2].double() - start.double(), poses_ref[2].double() - start.double()
+    worst = 0.0
+    for slot in range(d_ref.shape[0]):
+        if not bool((d_ref[slot] != 0).any()):
+            continue
+        for s in (slice(0, 4), slice(4, 7)):
+            n_ref = float(d_ref[slot, s].norm())
+            worst = max(worst, abs(float(d[slot, s].norm()) - n_ref) / max(n_ref, 1e-30))
+    return worst
 
 
 def compare(cap: dict, inputs: Inputs, cfg: dict, device, control: bool = False,
@@ -247,8 +307,11 @@ def compare(cap: dict, inputs: Inputs, cfg: dict, device, control: bool = False,
     seed_ref = seed_numbers(cap, inputs, device, f32)
     cand = cap["seed"]
     track_ref = tracked(cap, inputs, cfg, device, f32)
-    map_ref = map_steps(cap, cfg, inputs.cam, device, f32)
     held, names = track_held(cfg), numbers_for(cfg)
+    ba = _do_ba(cfg)
+    mask_ref = ba_mask_ref(cap, cfg, inputs.cam, device, f32) if ba else None
+    # the reference's map step takes the program's mask: a fault in it shows once
+    map_ref = map_steps(cap, cfg, inputs.cam, device, f32, row_mask=cap.get("ba_mask"))
 
     def numbers(frames, seed_xyz, early, pose, mp, seed_gap) -> dict:
         lg = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(mp["losses"], map_ref["losses"]))
@@ -267,12 +330,17 @@ def compare(cap: dict, inputs: Inputs, cfg: dict, device, control: bool = False,
             map_step_gap=_norm_gaps(step_p, step_r, map_ref["first_grad"]),
             # printed, not judged (the module's docstring)
             pose_loss_gap=pose_loss_gap(cap, inputs, cfg, device, pose, track_ref["pose"]))
+        if ba:
+            out.update(ba_mask_gap=_mask_gap(mp["ba_mask"], mask_ref),
+                       map_pose_step_gap=_pose_step_gap(mp["poses"], map_ref["poses"],
+                                                        cap["map_in"]["kf_poses"]))
         if "seed_pose_gap" not in names:
             out.pop("seed_pose_gap")
         return out
 
     prog_map = dict(losses=cap["map_losses"], first_grad=cap["map_grad"],
-                    before=cap["map_before"], after=cap["map_after"])
+                    before=cap["map_before"], after=cap["map_after"],
+                    ba_mask=cap.get("ba_mask"), poses=cap.get("map_poses"))
     seed_gap = "seed_pose_gap" in names and seed_pose_gap(cap, cfg, torch.float32)
     out["program"] = numbers((rgb_gap, depth_gap), cand["xyz"][cand["mask"]],
                              cap["track_early"], cap["track_out"], prog_map, seed_gap)
@@ -285,8 +353,10 @@ def compare(cap: dict, inputs: Inputs, cfg: dict, device, control: bool = False,
         seed_c = seed_numbers(cap, inputs, device, bf16)
         track_c = tracked(cap, inputs, cfg, device, bf16)
         early_c = list(zip(track_c["poses"], track_c["losses"]))
-        map_c = map_steps(cap, cfg, inputs.cam, device, bf16)
-        map_c = dict(map_c, first_grad={f: t.cpu() for f, t in map_c["first_grad"].items()})
+        mask_c = ba_mask_ref(cap, cfg, inputs.cam, device, bf16) if ba else None
+        map_c = map_steps(cap, cfg, inputs.cam, device, bf16, row_mask=mask_c)
+        map_c = dict(map_c, first_grad={f: t.cpu() for f, t in map_c["first_grad"].items()},
+                     ba_mask=mask_c)
         seed_gap_c = "seed_pose_gap" in names and _gap(
             ref.seed_pose(cap["seed_prev"], _dyn_model(cfg), bf16).double()[:3],
             ref.seed_pose(cap["seed_prev"], _dyn_model(cfg), f32).double()[:3])

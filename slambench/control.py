@@ -8,7 +8,10 @@ program's place), all in one process.
 
 Prints a line per seed and run, then per number the largest program reading
 (the lower) and the smallest control reading (the upper), which the limits
-in limits/<cell>.json are set between.
+in limits/<cell>.json are set between. The numbers are the cell's
+(check.numbers_for): ba_mask_gap and map_pose_step_gap where its
+configuration sets mapping.do_BA. Standard error gives each seed's check
+seconds ("check of frame ...").
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ def main(argv=None) -> int:
         rows.append(dict(seed=seed, check_frame=r["check_frame"], **r["readings"],
                          seconds=time.perf_counter() - t0))
         print(json.dumps(rows[-1]), flush=True)
-    names = [k for k in check.NUMBERS if k in rows[0]["program"]]
+    names = check.numbers_for(spec["config"]["config"])
     lower = {k: max(r["program"][k] for r in rows) for k in names}
     upper = {k: min(r["control"][k] for r in rows if "control" in r) for k in names}
     summary = dict(workload=args.workload, seeds=args.seeds, lower=lower, upper=upper,

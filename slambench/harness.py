@@ -11,9 +11,9 @@ None. A later cell or metric adds files and edits none.
 
 The harness reaches into the program at named entry points (Probe): the
 tracking and mapping calls of the frame loop, the map optimizer's
-gradient and Adam steps, frame 0's new Gaussians and the four kernel
-wrappers of mm3dgs_slam_torch/ops/kernels.py. A missing entry point fails
-the run.
+gradient and Adam steps, bundle adjustment's pose Adam, frame 0's new
+Gaussians and the four kernel wrappers of mm3dgs_slam_torch/ops/kernels.py.
+A missing entry point fails the run.
 """
 from __future__ import annotations
 
@@ -130,11 +130,13 @@ def loader_cam(cfg: dict):
 
 class Probe:
     """Wrappers around the program's entry points. On the checked frame they
-    copy the frame's inputs and outputs to the host; on frame 0 the new
-    Gaussians; while profiling they mark the tracking, mapping and kernel
-    calls with record_function spans and copy to the host what each kernel
-    launch's bound is counted from, inside a `slambench.rec` span whose
-    device activities trace.read_events leaves out."""
+    copy the frame's inputs and outputs to the host (under bundle adjustment
+    also the mask of the rows the map step moves, the count of rows appended
+    before mapping and the window's poses after the first three pose steps);
+    on frame 0 the new Gaussians; while profiling they mark the tracking,
+    mapping and kernel calls with record_function spans and copy to the host
+    what each kernel launch's bound is counted from, inside a `slambench.rec`
+    span whose device activities trace.read_events leaves out."""
 
     def __init__(self, check_idx: int, track_record: int = 4):
         self.frame = -1
@@ -146,6 +148,7 @@ class Probe:
         self.launches: list[dict] = []
         self._last_inputs = None
         self._map = None
+        self._rows_in = 0   # the map's rows as the checked frame's mapping began
         self._undo: list = []
 
     def install(self):
@@ -163,6 +166,7 @@ class Probe:
         self._patch(mapper_mod.Mapper, "run_frame", self._run_frame)
         self._patch(map_opt, "_grad_and_stats", self._grad_stats)
         self._patch(map_opt, "adam_update", self._adam)
+        self._patch(map_opt, "pose_adam", self._pose_adam)
         for name in KERNEL_ENTRIES:
             self._patch(kernels, name, self._launch(name))
         return self
@@ -233,7 +237,11 @@ class Probe:
     def _run_frame(self, orig):
         probe = self
 
+        sig = inspect.signature(orig)
+
         def run_frame(mapper, *args, **kw):
+            if probe._checking():   # the rows before this frame appends any
+                probe._rows_in = sig.bind(mapper, *args, **kw).arguments["m"].n
             probe.phase = "map"
             with probe._span("slambench.map"):
                 out = orig(mapper, *args, **kw)
@@ -260,14 +268,16 @@ class Probe:
                     step=int(st.adam.step), max_radii=st.max_radii.detach().cpu(),
                     kf_colors=kf_colors.detach().cpu(), kf_depths=kf_depths.detach().cpu(),
                     kf_poses=kf_poses.detach().cpu(), schedule=np.asarray(schedule).copy(),
-                    extent=float(camera_extent))
-                self._map = dict(losses=[], adam_calls=0)
+                    extent=float(camera_extent), n_added=st.m.n - self._rows_in)
+                self.cap["ba_mask"] = None if st.ba_mask is None else st.ba_mask.detach().cpu()
+                self._map = dict(losses=[], adam_calls=0, poses=[])
             try:
                 return orig(st, kf_colors, kf_depths, kf_ests, kf_poses, schedule,
                             camera_extent, ms)
             finally:
                 if self._map is not None:
                     self.cap["map_losses"] = [float(x) for x in self._map["losses"]]
+                    self.cap["map_poses"] = self._map["poses"]
                 self._map = None
         return optimize_map
 
@@ -293,6 +303,14 @@ class Probe:
                                              for f, t in out[0]._asdict().items()}
             return out
         return adam_update
+
+    def _pose_adam(self, orig):
+        def pose_adam(pa, k, g_pose, ms):
+            out = orig(pa, k, g_pose, ms)
+            if self._map is not None and len(self._map["poses"]) < 3:
+                self._map["poses"].append(out.poses.detach().cpu())
+            return out
+        return pose_adam
 
     def _launch(self, name: str):
         def make(orig):
@@ -342,18 +360,13 @@ def warm_tracking(slam) -> None:
                          slam.track_settings)
 
 
-def end_to_end(frames: list, window_s: float, peak_bytes: int, setup_s: float) -> dict:
-    """name -> (value, unit): frames completed over the window's time (frame
-    1's start to the last frame's end), tracking seconds per tracked frame
-    (the increase of SLAM.tracking_time_sum over the frames that tracked),
-    the peak allocated memory over frames 1 .. MEM_FRAMES (the same frames
-    in every run, however many the window holds), the set-up's seconds."""
-    tracked = [f for f in frames if f["track_s"] > 0]
-    return dict(
-        frames_per_s=(len(frames) / window_s, "frames/s"),
-        track_s_per_frame=(sum(f["track_s"] for f in tracked) / max(len(tracked), 1), "s"),
-        peak_mem_gib=(peak_bytes / 2 ** 30, "GiB"),
-        setup_s=(setup_s, "s"))
+def end_to_end(peak_bytes: int, setup_s: float) -> dict:
+    """name -> (value, unit): the peak allocated memory over frames 1 ..
+    MEM_FRAMES (the same frames in every run, however many the window
+    holds), the set-up's seconds. The window's rates, paced by one host
+    thread whose speed swings between runs, stand per layer
+    (metrics/loop_frames_per_s.py, loop_track_s_per_frame.py)."""
+    return dict(peak_mem_gib=(peak_bytes / 2 ** 30, "GiB"), setup_s=(setup_s, "s"))
 
 
 def host_reading() -> dict:
@@ -518,7 +531,8 @@ def run_cell(spec: dict, seed: int, seconds: float, traced: bool, device: str = 
                     f"kind {prof_events['kinds']}", file=sys.stderr)
                 del prof
             log(f"[slambench] frame {idx}: {frames[-1]['wall_s']:.3f} s, tracking "
-                f"{frames[-1]['track_s']:.3f} s, mapping {frames[-1]['map_s']:.3f} s"
+                f"{frames[-1]['track_s']:.3f} s, mapping {frames[-1]['map_s']:.3f} s, "
+                f"{slam.n_gaussians()} rows, {len(slam.mapper.keyframes)} keyframes"
                 f"{' (profiled)' if profiled else ''}", file=sys.stderr)
             idx += 1
             # a traced window holds the profiled frame and one before it
@@ -548,7 +562,7 @@ def run_cell(spec: dict, seed: int, seconds: float, traced: bool, device: str = 
 
         metrics = {}
         n = len(frames)
-        e2e = end_to_end(frames, window_s, mem_peak, setup_s)
+        e2e = end_to_end(mem_peak, setup_s)
         if not traced:
             for k in spec["end_to_end"]:
                 metrics[k] = {"value": e2e[k][0], "unit": e2e[k][1]}

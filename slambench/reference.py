@@ -17,6 +17,10 @@ the math the port implements:
   * tracking's Adam on (q, T) (mm3dgs_slam_torch/slam/tracker.py),
   * the mapping iteration: loss, densification stats, prune, map Adam
     (mm3dgs_slam_torch/slam/map_opt.py, models/gaussians.py),
+  * bundle adjustment, written from the reference's description
+    (slam/mapper.py:749-788, 930-942 of MM3DGS-SLAM): the window's poses a
+    gradient leaf stepped by their own Adam, and the covisibility mask of
+    the rows the map step moves (ba_mask),
   * frame 0's new Gaussians (mm3dgs_slam_torch/slam/map_ops.py
     new_gaussian_candidates, first frame).
 
@@ -544,6 +548,9 @@ class MapSpec(NamedTuple):
     rebin_every: int
     lrs: dict                  # leaf -> learning rate
     force_isotropic: bool
+    do_BA: bool = False        # bundle adjustment: the window's poses move too
+    cam_q_lr: float = 0.0      # its Adam's learning rates, for q and for T
+    cam_t_lr: float = 0.0
 
 
 def is_prune(i: int, ms: MapSpec) -> bool:
@@ -551,37 +558,85 @@ def is_prune(i: int, ms: MapSpec) -> bool:
             and i <= ms.densify_until_iter)
 
 
+def ba_mask(leaves: dict, kf_poses, n_added: int, cam: Cam, force_isotropic: bool, dtype):
+    """[N] bool: the rows that bundle adjustment's map step moves: those with
+    a projected radius > 0 from at least 2 of the window's poses [K, 7], and
+    the last `n_added` rows, appended this frame (mapper.py:931-936)."""
+    with torch.no_grad():
+        g = activate(*(leaves[f].to(dtype) for f in ("xyz", "features_dc", "scaling",
+                                                    "rotation", "opacity")))
+        seen = sum((project(g, pose.to(dtype), cam, force_isotropic).radius > 0).long()
+                   for pose in kf_poses)
+        mask = seen >= 2
+        mask[mask.shape[0] - n_added:] = True
+        return mask
+
+
+def _pose_adam_step(poses, m, v, step: int, grad, ms: MapSpec):
+    """Bundle adjustment's Adam over the window's poses [K, 7] with the
+    iteration's gradient [K, 7] (zero but in the slot rendered): one step
+    counter for the frame; every slot's moments decay and every slot moves
+    by its momentum; q at cam_q_lr, T at cam_t_lr; eps 1e-15; the bias
+    corrections in float32."""
+    f32, dev = torch.float32, poses.device
+    t = torch.tensor(float(step), dtype=f32, device=dev)
+    bc1 = 1.0 - torch.tensor(0.9, dtype=f32, device=dev) ** t
+    bc2 = 1.0 - torch.tensor(0.999, dtype=f32, device=dev) ** t
+    m = 0.9 * m + 0.1 * grad
+    v = 0.999 * v + 0.001 * grad * grad
+    lr = torch.cat([torch.full((4,), ms.cam_q_lr, dtype=f32, device=dev),
+                    torch.full((3,), ms.cam_t_lr, dtype=f32, device=dev)])
+    return poses - lr * (m / bc1) / (torch.sqrt(v) / torch.sqrt(bc2) + 1e-15), m, v
+
+
 def map_iterations(leaves: dict, mu: dict, nu: dict, step: int, max_radii, extent: float,
                    kf_colors, kf_depths, kf_poses, schedule, n_iter: int, cam: Cam,
-                   ms: MapSpec, dtype):
+                   ms: MapSpec, dtype, row_mask=None):
     """The mapping loop's first `n_iter` iterations from a map's leaves, its
     Adam moments and step, and the densification radii: returns each
     iteration's loss, the gradients of the first Adam step (by leaf), the
     leaves before it and after the last iteration, and the rows left after
     each prune. Bins follow the loop's segments: rebuilt at prunes, at a
-    change of keyframe and every ms.rebin_every iterations."""
+    change of keyframe and every ms.rebin_every iterations.
+
+    Under bundle adjustment (ms.do_BA) the window's poses [K, 7] are a leaf
+    too: the bins are rebuilt every iteration at the moved pose, the poses'
+    Adam steps after every iteration, prunes included, with that
+    iteration's gradient (taken on the map before the prune), and the map
+    step zeroes the gradients of the rows outside `row_mask` [N] (their
+    moments still decay, and they still move by momentum). It also returns
+    the window's poses after each iteration."""
     f32 = torch.float32
     nc = 4 if ms.use_depth_loss else 3
     valid = pixel_valid(cam, kf_colors.device)
     losses, first_grad, before, rows = [], None, None, []
     groups, seg_start = None, 0
+    poses = kf_poses.to(f32).clone()
+    pose_m, pose_v, window_poses = torch.zeros_like(poses), torch.zeros_like(poses), []
     for i in range(n_iter):
         k = int(schedule[i])
         prune = is_prune(i, ms)
-        if (i == 0 or prune or is_prune(i - 1, ms) or int(schedule[i - 1]) != k
+        if (ms.do_BA or i == 0 or prune or is_prune(i - 1, ms) or int(schedule[i - 1]) != k
                 or i - seg_start >= max(ms.rebin_every, 1)):
             with torch.no_grad():
                 p = project(activate(*(leaves[f] for f in ("xyz", "features_dc", "scaling",
                                                          "rotation", "opacity"))),
-                            kf_poses[k], cam, ms.force_isotropic)
+                            poses[k], cam, ms.force_isotropic)
                 groups = group_tiles(build_bins(p, cam), cam)
             seg_start = i
         wrt = {f: leaves[f].detach().requires_grad_(True) for f in LEAVES}
         screen = torch.zeros((wrt["xyz"].shape[0], 2), dtype=f32, device=kf_colors.device,
                              requires_grad=True)
+        extra = [screen]
+        if ms.do_BA:
+            window = poses.detach().requires_grad_(True)
+            extra.append(window)
+            pose = window[k]
+        else:
+            pose = kf_poses[k]
         g = activate(wrt["xyz"], wrt["features_dc"], wrt["scaling"], wrt["rotation"],
                      wrt["opacity"])
-        p = project(g, kf_poses[k], cam, ms.force_isotropic)
+        p = project(g, pose, cam, ms.force_isotropic)
         p = p._replace(xy=p.xy + screen)
         acc, _ = composite(p, groups, cam, nc, dtype)
         image = from_tiles(acc[:, :3], cam)
@@ -593,15 +648,19 @@ def map_iterations(leaves: dict, mu: dict, nu: dict, step: int, max_radii, exten
             loss = loss + ms.pearson_weight * pearson_loss(
                 acc[:, 3], gt_d, (gt_d > 0) & valid, invert_estimate=False)
         params = [wrt[f] for f in LEAVES]
-        grads = torch.autograd.grad(loss.float(), params + [screen], allow_unused=True)
+        grads = torch.autograd.grad(loss.float(), params + extra, allow_unused=True)
         grads = [torch.zeros_like(t) if gr is None else gr.to(f32)
-                 for t, gr in zip(params + [screen], grads)]
+                 for t, gr in zip(params + extra, grads)]
         losses.append(float(loss.detach()))
         radius = p.radius
         visible = radius > 0
         if i <= ms.densify_until_iter:
             max_radii = torch.where(visible, torch.maximum(max_radii, radius.to(f32)), max_radii)
         with torch.no_grad():
+            if ms.do_BA:
+                poses, pose_m, pose_v = _pose_adam_step(poses, pose_m, pose_v, i + 1,
+                                                        grads[-1], ms)
+                window_poses.append(poses.cpu())
             if prune:
                 keep = ~(torch.sigmoid(leaves["opacity"][:, 0]) < ms.min_opacity)
                 keep &= ~(torch.max(torch.exp(leaves["scaling"]), dim=1).values > 0.1 * extent)
@@ -612,6 +671,8 @@ def map_iterations(leaves: dict, mu: dict, nu: dict, step: int, max_radii, exten
                 mu = {f: t[idx] for f, t in mu.items()}
                 nu = {f: t[idx] for f, t in nu.items()}
                 max_radii = max_radii[idx]
+                if row_mask is not None:
+                    row_mask = row_mask[idx]
                 rows.append(int(idx.numel()))
                 continue
             if first_grad is None:
@@ -620,11 +681,17 @@ def map_iterations(leaves: dict, mu: dict, nu: dict, step: int, max_radii, exten
             step += 1
             bc1, bc2 = 1.0 - 0.9 ** step, (1.0 - 0.999 ** step) ** 0.5
             for f, gr in zip(LEAVES, grads):
+                if row_mask is not None:
+                    gr = torch.where(row_mask.reshape((-1,) + (1,) * (gr.dim() - 1)), gr,
+                                     torch.zeros_like(gr))
                 mu[f] = 0.9 * mu[f] + 0.1 * gr
                 nu[f] = 0.999 * nu[f] + 0.001 * gr * gr
                 leaves[f] = leaves[f] - ms.lrs[f] * (mu[f] / bc1) / (torch.sqrt(nu[f]) / bc2
                                                                      + 1e-15)
-    return dict(losses=losses, first_grad=first_grad, before=before, after=leaves, rows=rows)
+    out = dict(losses=losses, first_grad=first_grad, before=before, after=leaves, rows=rows)
+    if ms.do_BA:
+        out["poses"] = window_poses
+    return out
 
 
 # -- frame 0's new Gaussians ---------------------------------------------------
